@@ -1,0 +1,150 @@
+"""The port's RoIAlign against cim_tpu's, on the CPU.
+
+The plain PyTorch version (the CPU path of cim_tpu_torch.ops.roi_align and
+the oracle of its CUDA kernel) is held against:
+- the XLA op cim_tpu.ops.roi_align.roi_align, at grid caps 2 (cim_tpu's XLA
+  path, TPU.MAX_ADAPTIVE_GRID) and 4 (its Pallas path);
+- the Pallas kernel roi_align_pallas in interpret mode, at cap 4.
+The CUDA kernel has no CPU or interpret mode: the tests marked ``cuda``
+hold it against the plain version on the card and skip without one
+(chip_smoke.py does the same at the eval path's full shapes).
+"""
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import cim_tpu.ops.pallas.roi_align_kernel as rak
+from cim_tpu.ops.roi_align import roi_align as jax_roi_align
+from cim_tpu_torch.ops.roi_align import roi_align, roi_align_plain
+
+N = 7
+
+
+@pytest.fixture
+def interpret_mode(monkeypatch):
+    # run the Pallas kernel in interpreter mode on the CPU test backend
+    monkeypatch.setattr(
+        rak.pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
+    )
+
+
+def _case(rng, scale, h=16, w=20, c=8, pad=(3, 5)):
+    """A zero-padded feature bucket with valid extent (h, w) and N rois
+    across the image, one out to its border and one of zero area (a
+    padding row)."""
+    feat = np.zeros((h + pad[0], w + pad[1], c), np.float32)
+    feat[:h, :w] = rng.randn(h, w, c)
+    img_h, img_w = h / scale, w / scale
+    x1 = rng.uniform(-8, img_w * 0.6, N)
+    y1 = rng.uniform(-8, img_h * 0.6, N)
+    rois = np.stack(
+        [x1, y1, x1 + rng.uniform(2, img_w * 0.6, N), y1 + rng.uniform(2, img_h * 0.6, N)], -1
+    ).astype(np.float32)
+    rois[-2] = [img_w * 0.5, img_h * 0.5, img_w - 1, img_h - 1]
+    rois[-1] = 0.0
+    return feat, rois, (h, w)
+
+
+@pytest.mark.parametrize("scale", [1 / 16, 1 / 8, 1 / 32])
+@pytest.mark.parametrize("sampling_ratio", [0, 2])
+@pytest.mark.parametrize("cap", [2, 4])
+def test_plain_matches_xla(rng, scale, sampling_ratio, cap):
+    feat, rois, valid = _case(rng, scale)
+    want = np.asarray(jax_roi_align(
+        jnp.asarray(feat), jnp.asarray(rois), output_size=7, spatial_scale=scale,
+        sampling_ratio=sampling_ratio, aligned=True, max_adaptive_grid=cap,
+        valid_hw=valid,
+    ))
+    got = roi_align(torch.from_numpy(feat), torch.from_numpy(rois), 7, scale,
+                    sampling_ratio, cap, valid).numpy()
+    assert got.shape == (N, 7, 7, feat.shape[2])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sampling_ratio", [0, 2])
+@pytest.mark.parametrize("padded", [False, True])
+def test_plain_matches_pallas(rng, interpret_mode, sampling_ratio, padded):
+    feat, rois, valid = _case(rng, 1 / 16)
+    if not padded:
+        feat = np.ascontiguousarray(feat[: valid[0], : valid[1]])
+        valid = None
+    want = np.asarray(rak.roi_align_pallas(
+        jnp.asarray(feat), jnp.asarray(rois), 7, 1 / 16, sampling_ratio, 4,
+        4, 4, valid_hw=valid,
+    ))
+    got = roi_align(torch.from_numpy(feat), torch.from_numpy(rois), 7, 1 / 16,
+                    sampling_ratio, 4, valid).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_cpu_wrapper_launches_no_kernel(rng):
+    feat, rois, valid = _case(rng, 1 / 16)
+    before = roi_align.kernel_launches
+    roi_align(torch.from_numpy(feat), torch.from_numpy(rois), valid_hw=valid)
+    assert roi_align.kernel_launches == before
+    if not torch.cuda.is_available():
+        assert before == 0
+
+
+def test_wrapper_refuses_other_devices():
+    feat = torch.empty((4, 4, 8), device="meta")
+    rois = torch.empty((2, 4), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        roi_align(feat, rois)
+
+
+def test_plain_bf16_sums_in_f32(rng):
+    """bf16 features give a bf16 result: the f32 sum over the same bf16
+    values, rounded once (the bound the CUDA kernel is held to)."""
+    feat, rois, valid = _case(rng, 1 / 16, c=16)
+    fb = torch.from_numpy(feat).to(torch.bfloat16)
+    got = roi_align_plain(fb, torch.from_numpy(rois), 7, 1 / 16, 0, 4, valid)
+    want = roi_align_plain(fb.float(), torch.from_numpy(rois), 7, 1 / 16, 0, 4, valid)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want.to(torch.bfloat16), rtol=0, atol=0)
+
+
+def test_plain_no_rois(rng):
+    feat, _, valid = _case(rng, 1 / 16)
+    out = roi_align(torch.from_numpy(feat), torch.zeros((0, 4)), valid_hw=valid)
+    assert out.shape == (0, 7, 7, feat.shape[2])
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [72, 5], ids=["vec16B", "scalar"])
+@pytest.mark.parametrize("sampling_ratio", [0, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_matches_plain_on_cuda(rng, dtype, sampling_ratio, channels):
+    """The kernel against the plain version on the same CUDA inputs: float32
+    within 1e-5 (sums in another order), bf16 within one output rounding.
+    72 channels take the 16-byte vector loads, 5 the scalar ones."""
+    _cuda_or_skip()
+    feat, rois, valid = _case(rng, 1 / 16, c=channels)
+    feat = torch.from_numpy(feat).cuda().to(dtype)
+    rois = torch.from_numpy(rois).cuda()
+    before = roi_align.kernel_launches
+    with torch.no_grad():
+        got = roi_align(feat, rois, 7, 1 / 16, sampling_ratio, 4, valid)
+        want = roi_align_plain(feat, rois, 7, 1 / 16, sampling_ratio, 4, valid)
+    assert roi_align.kernel_launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    atol = 1e-5 if dtype == torch.float32 else 1e-2 * feat.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_grad_on_cuda(rng):
+    _cuda_or_skip()
+    feat, rois, valid = _case(rng, 1 / 16)
+    feat = torch.from_numpy(feat).cuda().requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        roi_align(feat, torch.from_numpy(rois).cuda(), valid_hw=valid)
