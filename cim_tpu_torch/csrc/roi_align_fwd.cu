@@ -7,13 +7,9 @@
 // ROI block because the MXU wants matmuls. Here each output value is a
 // direct weighted sum of at most cap^2 * 4 feature taps.
 //
-// Semantics (mmcv RoIAlign, aligned=True, as cim_tpu.ops.roi_align):
-//   - coordinates are roi * spatial_scale - 0.5, no minimum ROI size;
-//   - sampling_ratio > 0 takes that many samples per bin and axis;
-//     sampling_ratio == 0 takes clip(ceil(bin), 1, cap) of them;
-//   - bilinear taps snap to the valid extent (vh, vw) of a zero-padded
-//     feature bucket; samples beyond [-1, v] contribute zero;
-//   - sums are f32, the output takes the feature dtype (f32 or bf16).
+// Semantics: those of roi_align_common.cuh (mmcv RoIAlign, aligned=True,
+// as cim_tpu.ops.roi_align); sums are f32, the output takes the feature
+// dtype (f32 or bf16).
 //
 // What bounds it on this card: reads of the feature map. A bin reads up to
 // 16 samples x 4 taps x C values, so at the eval shape (N = 2048 ROIs,
@@ -32,55 +28,13 @@
 // Interface: plain extern "C" launcher, loaded with ctypes. It launches on
 // the given stream, allocates nothing and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "roi_align_common.cuh"
 
 namespace {
 
-constexpr int kMaxGrid = 64;  // samples per bin and axis; checked by the wrapper
-
-struct AxisSample {
-  int lo, hi;      // tap rows (or columns), already snapped to the valid extent
-  float wlo, whi;  // bilinear weights, zero when the sample is out of range
-};
-
-template <typename T>
-struct Cvt;
-template <>
-struct Cvt<float> {
-  __device__ static float to_f(float x) { return x; }
-  __device__ static float from_f(float x) { return x; }
-};
-template <>
-struct Cvt<__nv_bfloat16> {
-  __device__ static float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-  __device__ static __nv_bfloat16 from_f(float x) { return __float2bfloat16_rn(x); }
-};
-
-// One sample along one axis. The explicit _rn intrinsics keep nvcc from
-// contracting the coordinate arithmetic into FMAs, so coordinates round
-// exactly as the plain PyTorch version's do and a sample on a tap boundary
-// falls on the same side in both.
-__device__ AxisSample axis_sample(float lo, float bin, int g, int s, int p,
-                                  int valid) {
-  float start = __fadd_rn(lo, __fmul_rn(static_cast<float>(p), bin));
-  float step = __fdiv_rn(bin, static_cast<float>(g));
-  float coord = __fadd_rn(start, __fmul_rn(static_cast<float>(s) + 0.5f, step));
-  AxisSample out;
-  bool in_range = !(coord < -1.0f || coord > static_cast<float>(valid));
-  coord = fmaxf(coord, 0.0f);
-  int low = static_cast<int>(floorf(coord));
-  bool at_edge = low >= valid - 1;
-  low = min(low, valid - 1);
-  out.lo = low;
-  out.hi = min(low + 1, valid - 1);
-  float l = at_edge ? 0.0f : __fsub_rn(coord, static_cast<float>(low));
-  float h = __fsub_rn(1.0f, l);
-  out.wlo = in_range ? h : 0.0f;
-  out.whi = in_range ? l : 0.0f;
-  return out;
-}
+using roi_align::AxisSample;
+using roi_align::Cvt;
+using roi_align::kMaxGrid;
 
 template <typename T, int V>
 __device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
@@ -125,28 +79,10 @@ __global__ void roi_align_fwd_kernel(const T* __restrict__ feat,
   const int py = bin / r;
   const int px = bin % r;
 
-  const float* roi = rois + 4 * static_cast<int64_t>(n);
-  const float x1 = __fsub_rn(__fmul_rn(roi[0], scale), 0.5f);
-  const float y1 = __fsub_rn(__fmul_rn(roi[1], scale), 0.5f);
-  const float x2 = __fsub_rn(__fmul_rn(roi[2], scale), 0.5f);
-  const float y2 = __fsub_rn(__fmul_rn(roi[3], scale), 0.5f);
-  const float bin_w = __fdiv_rn(__fsub_rn(x2, x1), static_cast<float>(r));
-  const float bin_h = __fdiv_rn(__fsub_rn(y2, y1), static_cast<float>(r));
-  int gh, gw;
-  if (sampling_ratio > 0) {
-    gh = gw = sampling_ratio;
-  } else {
-    gh = static_cast<int>(fminf(fmaxf(ceilf(bin_h), 1.0f), static_cast<float>(cap)));
-    gw = static_cast<int>(fminf(fmaxf(ceilf(bin_w), 1.0f), static_cast<float>(cap)));
-  }
-
-  for (int i = threadIdx.x; i < gh + gw; i += blockDim.x) {
-    if (i < gh) {
-      ys[i] = axis_sample(y1, bin_h, gh, i, py, vh);
-    } else {
-      xs[i - gh] = axis_sample(x1, bin_w, gw, i - gh, px, vw);
-    }
-  }
+  const roi_align::RoiGeom geom = roi_align::roi_geom(
+      rois + 4 * static_cast<int64_t>(n), scale, r, sampling_ratio, cap);
+  const int gh = geom.gh, gw = geom.gw;
+  roi_align::bin_samples(geom, py, px, vh, vw, ys, xs);
   __syncthreads();
 
   const float count = static_cast<float>(gh * gw);
@@ -193,10 +129,6 @@ void launch(const void* feat, const float* rois, void* out, int n, int width,
       vw, r, scale, sampling_ratio, cap);
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. features (H, W, C) contiguous; rois
@@ -211,7 +143,7 @@ extern "C" int roi_align_fwd(const void* feat, const void* rois, void* out,
   if (n == 0 || c == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* rf = static_cast<const float*>(rois);
-  bool vec = aligned16(feat) && aligned16(out);
+  bool vec = roi_align::aligned16(feat) && roi_align::aligned16(out);
   if (dtype == 0) {
     if (vec && c % 4 == 0)
       launch<float, 4>(feat, rf, out, n, width, c, vh, vw, r, spatial_scale,

@@ -22,10 +22,11 @@ import math
 import numpy as np
 import torch
 
-from cim_tpu.data.transforms import TORCH_MEAN, TORCH_STD
+from cim_tpu_torch.data.transforms import TORCH_MEAN, TORCH_STD
 from cim_tpu_torch.ops.boxes import flip_boxes
 from cim_tpu_torch.ops.image import resize_bilinear_dynamic
 from cim_tpu_torch.ops.nms import nms_np, soft_nms_np
+from cim_tpu_torch.utils.device import check_on, resolve_device
 
 PAD_MULTIPLE = 128
 
@@ -36,15 +37,17 @@ def _round_up(x: int, m: int) -> int:
 
 class Evaluator:
     """Runs the TTA protocol of cfg.TEST.BBOX_AUG for one image at a time
-    with a CIMModel, on the device of the model's parameters."""
+    with a CIMModel on ``device``: the card unless the caller passes
+    device="cpu". The model must already lie on that device."""
 
     # short/long-side canvas ratio buckets (bucketed up; 1.0 = square)
     RATIO_BUCKETS = (0.5, 0.625, 0.75, 0.875, 1.0)
 
-    def __init__(self, cfg, model):
+    def __init__(self, cfg, model, device="cuda"):
         self.cfg = cfg
+        self.device = resolve_device(device)
+        check_on(model, self.device, "Evaluator")
         self.model = model.eval()
-        self.device = next(model.parameters()).device
 
     @staticmethod
     def tta_pass_list(cfg):

@@ -6,7 +6,7 @@ the roidb calling im_detect_all and pickles {image: {scores, boxes}} as
 detections.pkl (val) or discovery.pkl (train CorLoc); run_inference then
 applies box_results_with_nms_and_limit (or box_results_for_corloc) per
 image and calls task_evaluation.evaluate_all. The dataset, roidb and
-metric code are cim_tpu's own host modules, shared. The cross-image
+metric code are the port's copies of cim_tpu's host modules. The cross-image
 batched evaluator (TPU.EVAL_BATCH > 1), the overlap of host NMS with the
 next image and the multi-process fan-out are not ported yet.
 """
@@ -17,8 +17,8 @@ import os
 import pickle
 from collections import defaultdict
 
-from cim_tpu.data.json_dataset import JsonDataset
-from cim_tpu.engine.stats import Timer
+from cim_tpu_torch.data.json_dataset import JsonDataset
+from cim_tpu_torch.engine.stats import Timer
 from cim_tpu_torch.engine.test import (
     Evaluator,
     box_results_for_corloc,
@@ -65,8 +65,10 @@ def test_net(
     check_corloc=False,
     image_loader=None,
     evaluator=None,
+    device="cuda",
 ):
-    """Single-device dataset loop. model: a CIMModel on its device.
+    """Single-device dataset loop. model: a CIMModel on ``device`` (the
+    card unless the caller passes device="cpu").
     image_loader(entry) -> (H, W, 3) uint8 BGR image (defaults to
     cv2.imread). evaluator: a prebuilt Evaluator to reuse."""
     if int(cfg.TPU.EVAL_BATCH or 1) > 1:
@@ -78,7 +80,7 @@ def test_net(
     )
     num_images = len(roidb)
     image_loader = image_loader or _default_image_loader
-    evaluator = evaluator or Evaluator(cfg, model)
+    evaluator = evaluator or Evaluator(cfg, model, device=device)
     timers = defaultdict(Timer)
     all_scores = {}
     for i, entry in enumerate(roidb):
@@ -128,6 +130,7 @@ def run_inference(
     image_loader=None,
     ind_range=None,
     evaluator=None,
+    device="cuda",
 ):
     """Top-level inference + evaluation (reference run_inference :90-151).
     With ind_range only that slice is processed and pickled, and
@@ -138,7 +141,7 @@ def run_inference(
         cfg, model, dataset_name, proposal_file, output_dir,
         ind_range=tuple(ind_range) if ind_range else None,
         check_corloc=check_corloc, image_loader=image_loader,
-        evaluator=evaluator,
+        evaluator=evaluator, device=device,
     )
     if ind_range:
         return None, None, all_scores
@@ -152,7 +155,7 @@ def _post_process_and_evaluate(cfg, all_scores, roidb, dataset, output_dir,
                                check_corloc, check_expected_results):
     """Per-image NMS/CorLoc post-processing, evaluate_all and the
     expected-results gate."""
-    from cim_tpu.evaluation import task_evaluation
+    from cim_tpu_torch.evaluation import task_evaluation
 
     all_boxes = post_process_results(cfg, all_scores, roidb, dataset, check_corloc)
     results = task_evaluation.evaluate_all(
@@ -165,7 +168,7 @@ def _post_process_and_evaluate(cfg, all_scores, roidb, dataset, output_dir,
         )
         if failures and cfg.EXPECTED_RESULTS_EMAIL:
             # reference lib/utils/logging.py:86-92 (email on regression)
-            from cim_tpu.engine.stats import send_failure_email
+            from cim_tpu_torch.engine.stats import send_failure_email
 
             send_failure_email(
                 "CIM expected-results regression", "\n".join(failures),

@@ -7,7 +7,7 @@ cim_tpu_torch.utils.jax_weights.state_dict_from_jax, load unchanged.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 import torch.nn as nn
@@ -16,8 +16,13 @@ from cim_tpu_torch.models.heads import ClsIouHead
 from cim_tpu_torch.models.layers import torch_default_init_
 from cim_tpu_torch.models.mask_fuse import MaskFuse
 from cim_tpu_torch.models.resnet import ResNet50C4
+from cim_tpu_torch.models.tiny import TinyConvBody
+from cim_tpu_torch.utils.device import resolve_device
 
-BACKBONES = {"resnet50.torch_resnet50": ResNet50C4}
+BACKBONES = {
+    "resnet50.torch_resnet50": ResNet50C4,
+    "tiny.conv_body": TinyConvBody,  # the CPU tests' body
+}
 
 
 class CIMModel(nn.Module):
@@ -72,8 +77,26 @@ class CIMModel(nn.Module):
         }
 
 
-def build_model(cfg, device=None, generator: torch.Generator | None = None) -> CIMModel:
-    """CIMModel from a cim_tpu.config AttrDict, on ``device``.
+def frozen_paths_for(cfg) -> List[str]:
+    """Module paths whose parameters do not train: the reference's
+    FREEZE_AT stages (cim_tpu/models/builder.py frozen_paths_for; for
+    ResNet-50 the stem ``res1`` and, at FREEZE_AT 2, ``res2``), or the
+    whole conv body under TRAIN.FREEZE_CONV_BODY."""
+    if cfg.TRAIN.FREEZE_CONV_BODY:
+        return ["Conv_Body"]
+    if cfg.MODEL.CONV_BODY.startswith("resnet50"):
+        return [f"Conv_Body.res{i}" for i in range(1, cfg.ResNet.FREEZE_AT + 1)]
+    return []
+
+
+def is_frozen(name: str, frozen_paths) -> bool:
+    return any(name == p or name.startswith(p + ".") for p in frozen_paths)
+
+
+def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
+                train: bool = False) -> CIMModel:
+    """CIMModel from a config AttrDict, on ``device``: the card unless the
+    caller passes device="cpu".
 
     Precision follows cfg.TPU.PRECISION as in cim_tpu: "bf16_compute" runs
     the backbone and MaskFuse in bf16 (params stay float32) and the heads
@@ -82,7 +105,11 @@ def build_model(cfg, device=None, generator: torch.Generator | None = None) -> C
     TPU.PALLAS_ROI_ALIGN is on, else TPU.MAX_ADAPTIVE_GRID, so both
     packages compute the same numbers. With ``generator``, conv and linear
     weights are drawn from it (PyTorch's default init); BN starts at
-    identity."""
+    identity. With ``train``, the parameters of frozen_paths_for(cfg) get
+    requires_grad=False and the model is returned in training mode (BN
+    statistics stay frozen buffers either way; the FrozenBN weight and bias
+    train above FREEZE_AT, as in cim_tpu)."""
+    device = resolve_device(device)
     if cfg.FAST_RCNN.ROI_XFORM_METHOD != "RoIAlign":
         raise NotImplementedError(
             f"ROI_XFORM_METHOD {cfg.FAST_RCNN.ROI_XFORM_METHOD!r} is not ported yet"
@@ -105,4 +132,9 @@ def build_model(cfg, device=None, generator: torch.Generator | None = None) -> C
     )
     if generator is not None:
         torch_default_init_(model, generator)
-    return model.eval()
+    if not train:
+        return model.eval()
+    frozen = frozen_paths_for(cfg)
+    for name, p in model.named_parameters():
+        p.requires_grad_(not is_frozen(name, frozen))
+    return model.train()

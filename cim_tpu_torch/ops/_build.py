@@ -3,12 +3,14 @@
 Mirrors cim_tpu/native, which does the same for its host C++ with g++:
 each ``csrc/<name>.cu`` is compiled at first use into a shared library
 with a plain C interface, under ``cim_tpu_torch/_build/``, named by a hash
-of the source and the flags so that an edited source builds anew. No
-PyTorch headers are involved, so a build takes seconds.
+of the source, the shared headers ``csrc/*.cuh`` and the flags, so that an
+edited source or header builds anew. No PyTorch headers are involved, so a
+build takes seconds.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -38,13 +40,14 @@ def nvcc_path() -> str:
 
 
 def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless a library of the same source and
-    flags exists; returns the library's path."""
+    """Compile csrc/<name>.cu unless a library of the same source, headers
+    and flags exists; returns the library's path."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    digest = h.hexdigest()[:16]
     lib_path = os.path.join(BUILD_DIR, f"{name}_{digest}.so")
     if os.path.exists(lib_path):
         return lib_path

@@ -1,14 +1,60 @@
-"""Host NMS for detections (port of cim_tpu/ops/nms.py:nms_np, soft_nms_np).
+"""NMS (port of cim_tpu/ops/nms.py: greedy_nms_from_iou, nms_np, soft_nms_np).
 
-Pure numpy on the host, as in the reference. Greedy NMS calls the shared
-C++ kernel of cim_tpu.native (built with g++ at first use), which
-implements the reference cython_nms semantics.
+- :func:`greedy_nms_from_iou`: exact greedy NMS over precomputed IoU
+  matrices on the device, batched over a leading axis (CIM mining's
+  per-class seed NMS, reference lib/modeling/heads.py:237-258).
+- :func:`nms_np` / :func:`soft_nms_np`: host NMS for detections, numpy as
+  in the reference. Greedy NMS calls the C++ kernel of cim_tpu_torch.native
+  (built with g++ at first use), which implements the reference cython_nms
+  semantics.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from cim_tpu import native
+from cim_tpu_torch import native
+
+NEG_INF = -1e30
+
+
+def greedy_nms_from_iou(iou, scores, thresh, valid=None, rounds=None):
+    """Exact greedy NMS given IoU matrices, batched over leading axes.
+
+    iou: (..., N, N); scores: (..., N); valid: optional (..., N) bool
+    (invalid entries are never kept and never suppress). Candidates go in
+    descending score order, ties by index (stable sort); a candidate is
+    kept iff no kept higher-ranked candidate overlaps it with
+    ``iou >= thresh``. Returns the (..., N) bool keep mask.
+
+    As in cim_tpu, the greedy outcome is resolved a "generation" of
+    candidates per round with (N, N) reductions; the loop ends when no
+    valid candidate is undecided, which costs one host sync per round. A
+    finished batch row is a fixed point of the round, so rows that finish
+    early are unaffected by later rounds. rounds: optional list that gets
+    this call's round count appended.
+    """
+    n = scores.shape[-1]
+    if valid is None:
+        valid = torch.ones_like(scores, dtype=torch.bool)
+    s = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    order = torch.sort(-s, dim=-1, stable=True).indices
+    ar = torch.arange(n, device=scores.device).expand_as(order)
+    rank = torch.empty_like(order).scatter_(-1, order, ar)
+    # m[..., i, j]: j is a higher-ranked overlapping candidate of i
+    m = ((rank[..., None, :] < rank[..., :, None]) & (iou >= thresh)
+         & valid[..., None, :] & valid[..., :, None])
+    kept = torch.zeros_like(valid)
+    suppressed = torch.zeros_like(valid)
+    count = 0
+    while bool((valid & ~kept & ~suppressed).any()):
+        blocked = (m & ~suppressed[..., None, :]).any(-1)
+        kept = kept | (valid & ~suppressed & ~blocked)
+        suppressed = suppressed | ((m & kept[..., None, :]).any(-1) & ~kept)
+        count += 1
+    if rounds is not None:
+        rounds.append(count)
+    return kept
 
 
 def nms_np(dets: np.ndarray, thresh: float) -> list:

@@ -1,4 +1,4 @@
-"""RoIAlign forward: a plain PyTorch version and the hand-written CUDA kernel.
+"""RoIAlign: plain PyTorch versions and the hand-written CUDA kernels.
 
 Semantics are those of cim_tpu.ops.roi_align (mmcv RoIAlign with
 ``aligned=True``): coordinates roi * spatial_scale - 0.5, no minimum ROI
@@ -6,12 +6,14 @@ size; ``sampling_ratio`` > 0 takes that many samples per bin and axis, 0
 takes ceil(bin) of them capped at ``max_adaptive_grid``; bilinear taps snap
 to the valid extent ``valid_hw`` of a zero-padded feature bucket.
 
-:func:`roi_align` picks the implementation by the device of the features:
-a CPU tensor takes :func:`roi_align_plain`, a CUDA tensor launches the
-kernel of ``csrc/roi_align_fwd.cu`` (which replaces the TPU kernel
-cim_tpu/ops/pallas/roi_align_kernel.py:_fwd_kernel), and anything else
-raises. There is no backward kernel yet, so the CUDA path refuses features
-that require a gradient.
+:func:`roi_align` runs through :class:`RoIAlignFunction` and picks the
+implementation by the device of the features: a CPU tensor takes
+:func:`roi_align_plain` forward and :func:`roi_align_backward_plain`
+backward; a CUDA tensor launches the kernels of ``csrc/roi_align_fwd.cu``
+and ``csrc/roi_align_bwd.cu`` (which replace the TPU kernels
+cim_tpu/ops/pallas/roi_align_kernel.py:_fwd_kernel and _bwd_kernel); and
+anything else raises. The rois and the valid extent get no gradient, as
+in cim_tpu.
 """
 from __future__ import annotations
 
@@ -43,30 +45,16 @@ def _axis_taps(coord, valid: int):
     return low, high, w_low, w_high
 
 
-def roi_align_plain(
-    features: torch.Tensor,
-    rois: torch.Tensor,
-    output_size: int = 7,
-    spatial_scale: float = 1.0 / 16.0,
-    sampling_ratio: int = 0,
-    max_adaptive_grid: int = 2,
-    valid_hw=None,
-) -> torch.Tensor:
-    """RoIAlign in gather form: features (H, W, C), rois (N, 4) xyxy in
-    image coordinates -> (N, R, R, C) in the feature dtype.
-
-    Sums run in float32 whatever the feature dtype, so on bf16 features
-    this is the oracle the CUDA kernel is held to. valid_hw: optional
-    (h, w) ints, the true extent inside a zero-padded bucket.
-    """
-    height, width, channels = features.shape
-    vh, vw = (height, width) if valid_hw is None else (int(valid_hw[0]), int(valid_hw[1]))
+def _taps(rois, width, vh, vw, output_size, spatial_scale, sampling_ratio,
+          max_adaptive_grid):
+    """The bilinear taps of every ROI bin: returns (taps, count) where taps
+    yields (idx, w) per (sample, corner), idx the flat feature index
+    y * width + x and w the weight, both (N, R, R), and count (N,) is the
+    number of samples of each ROI's bins (gh * gw)."""
     n = rois.shape[0]
     r = output_size
-    dev = features.device
-    feat = features.reshape(height * width, channels).float()
+    dev = rois.device
     rois = rois.float()
-
     x1 = rois[:, 0] * spatial_scale - 0.5
     y1 = rois[:, 1] * spatial_scale - 0.5
     # divide by a tensor: CUDA divides by a Python scalar as a product with
@@ -89,33 +77,92 @@ def roi_align_plain(
     step_h = (bin_h / gh.float())[:, None]
     step_w = (bin_w / gw.float())[:, None]
 
-    acc = torch.zeros((n, r, r, channels), dtype=torch.float32, device=dev)
-    for iy in range(grid):
-        y = ys0 + (iy + 0.5) * step_h
-        ylo, yhi, wylo, wyhi = _axis_taps(y, vh)
-        y_on = (iy < gh)[:, None].float()
-        for ix in range(grid):
-            x = xs0 + (ix + 0.5) * step_w
-            xlo, xhi, wxlo, wxhi = _axis_taps(x, vw)
-            x_on = (ix < gw)[:, None].float()
-            # (N, R, 1) rows x (N, 1, R) columns -> (N, R, R) taps
-            for yy, wy in ((ylo, wylo * y_on), (yhi, wyhi * y_on)):
-                for xx, wx in ((xlo, wxlo * x_on), (xhi, wxhi * x_on)):
-                    idx = yy[:, :, None] * width + xx[:, None, :]
-                    w = wy[:, :, None] * wx[:, None, :]
-                    acc += feat[idx.reshape(-1)].reshape(n, r, r, channels) * w[..., None]
-    count = (gh * gw).float()[:, None, None, None]
-    return (acc / count).to(features.dtype)
+    def taps():
+        for iy in range(grid):
+            y = ys0 + (iy + 0.5) * step_h
+            ylo, yhi, wylo, wyhi = _axis_taps(y, vh)
+            y_on = (iy < gh)[:, None].float()
+            for ix in range(grid):
+                x = xs0 + (ix + 0.5) * step_w
+                xlo, xhi, wxlo, wxhi = _axis_taps(x, vw)
+                x_on = (ix < gw)[:, None].float()
+                # (N, R, 1) rows x (N, 1, R) columns -> (N, R, R) taps
+                for yy, wy in ((ylo, wylo * y_on), (yhi, wyhi * y_on)):
+                    for xx, wx in ((xlo, wxlo * x_on), (xhi, wxhi * x_on)):
+                        yield (yy[:, :, None] * width + xx[:, None, :],
+                               wy[:, :, None] * wx[:, None, :])
+
+    return taps(), (gh * gw).float()
 
 
-@functools.cache
-def _kernel():
-    """The launcher of csrc/roi_align_fwd.cu, built on first use."""
-    lib = _build.load("roi_align_fwd")
-    fn = lib.roi_align_fwd
+def _valid(height, width, valid_hw):
+    return (height, width) if valid_hw is None else (int(valid_hw[0]), int(valid_hw[1]))
+
+
+def roi_align_plain(
+    features: torch.Tensor,
+    rois: torch.Tensor,
+    output_size: int = 7,
+    spatial_scale: float = 1.0 / 16.0,
+    sampling_ratio: int = 0,
+    max_adaptive_grid: int = 2,
+    valid_hw=None,
+) -> torch.Tensor:
+    """RoIAlign in gather form: features (H, W, C), rois (N, 4) xyxy in
+    image coordinates -> (N, R, R, C) in the feature dtype.
+
+    Sums run in float32 whatever the feature dtype, so on bf16 features
+    this is the oracle the CUDA kernel is held to. valid_hw: optional
+    (h, w) ints, the true extent inside a zero-padded bucket.
+    """
+    height, width, channels = features.shape
+    vh, vw = _valid(height, width, valid_hw)
+    n, r = rois.shape[0], output_size
+    feat = features.reshape(height * width, channels).float()
+    taps, count = _taps(rois, width, vh, vw, r, spatial_scale, sampling_ratio,
+                        max_adaptive_grid)
+    acc = torch.zeros((n, r, r, channels), dtype=torch.float32, device=features.device)
+    for idx, w in taps:
+        acc += feat[idx.reshape(-1)].reshape(n, r, r, channels) * w[..., None]
+    return (acc / count[:, None, None, None]).to(features.dtype)
+
+
+def roi_align_backward_plain(
+    grad: torch.Tensor,
+    rois: torch.Tensor,
+    height: int,
+    width: int,
+    output_size: int = 7,
+    spatial_scale: float = 1.0 / 16.0,
+    sampling_ratio: int = 0,
+    max_adaptive_grid: int = 2,
+    valid_hw=None,
+) -> torch.Tensor:
+    """The gradient of :func:`roi_align_plain` with respect to its features:
+    grad (N, R, R, C) -> (H, W, C) in grad's dtype (the features' dtype).
+
+    Scatter form of the same taps as the forward, one index_add_ per
+    (sample, corner); sums run in float32 and round once to grad's dtype,
+    so on bf16 this is the oracle the CUDA kernel is held to.
+    """
+    channels = grad.shape[-1]
+    vh, vw = _valid(height, width, valid_hw)
+    taps, count = _taps(rois, width, vh, vw, output_size, spatial_scale,
+                        sampling_ratio, max_adaptive_grid)
+    g = grad.float() / count[:, None, None, None]
+    dfeat = torch.zeros((height * width, channels), dtype=torch.float32, device=grad.device)
+    for idx, w in taps:
+        dfeat.index_add_(0, idx.reshape(-1), (g * w[..., None]).reshape(-1, channels))
+    return dfeat.reshape(height, width, channels).to(grad.dtype)
+
+
+def _load(name: str):
+    """The launcher of csrc/<name>.cu, built on first use; both kernels
+    take the same arguments."""
+    fn = getattr(_build.load(name), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # feat, rois, out
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # in, rois, out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, h, w, c
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # vh, vw, r
         ctypes.c_float, ctypes.c_int, ctypes.c_int,  # scale, sampling_ratio, cap
@@ -124,42 +171,125 @@ def _kernel():
     return fn
 
 
-def _roi_align_cuda(features, rois, output_size, spatial_scale,
-                    sampling_ratio, max_adaptive_grid, valid_hw):
-    if features.requires_grad:
-        raise NotImplementedError(
-            "roi_align on CUDA has no backward kernel yet; call it on "
-            "features that do not require grad (e.g. under torch.no_grad())"
-        )
-    if features.dtype not in _DTYPE_CODES:
-        raise TypeError(f"roi_align kernel takes float32 or bfloat16 features, got {features.dtype}")
-    if features.dim() != 3 or not features.is_contiguous():
-        raise ValueError(f"features must be a contiguous (H, W, C) tensor, got shape {tuple(features.shape)}")
-    if rois.device != features.device or rois.dtype != torch.float32:
+_kernel = functools.cache(_load)
+
+
+def _check_cuda_args(what, t, rois, sampling_ratio, max_adaptive_grid, height,
+                     width, valid_hw):
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: the tensor must be contiguous")
+    if rois.device != t.device or rois.dtype != torch.float32:
         raise ValueError("rois must be float32 on the features' device")
     if rois.dim() != 2 or rois.shape[1] != 4 or not rois.is_contiguous():
         raise ValueError(f"rois must be a contiguous (N, 4) tensor, got shape {tuple(rois.shape)}")
     grid = sampling_ratio if sampling_ratio > 0 else max_adaptive_grid
     if not 1 <= grid <= MAX_GRID:
         raise ValueError(f"samples per bin and axis must be in [1, {MAX_GRID}], got {grid}")
-    height, width, channels = features.shape
-    vh, vw = (height, width) if valid_hw is None else (int(valid_hw[0]), int(valid_hw[1]))
+    vh, vw = _valid(height, width, valid_hw)
     if not (1 <= vh <= height and 1 <= vw <= width):
         raise ValueError(f"valid_hw {(vh, vw)} outside the feature map {(height, width)}")
-    n = rois.shape[0]
-    out = torch.empty((n, output_size, output_size, channels),
-                      dtype=features.dtype, device=features.device)
-    stream = torch.cuda.current_stream(features.device).cuda_stream
-    err = _kernel()(
-        features.data_ptr(), rois.data_ptr(), out.data_ptr(),
-        n, height, width, channels, vh, vw, output_size,
+    return vh, vw
+
+
+def _launch(name, src, rois, out, height, width, channels, vh, vw, output_size,
+            spatial_scale, sampling_ratio, max_adaptive_grid):
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    err = _kernel(name)(
+        src.data_ptr(), rois.data_ptr(), out.data_ptr(),
+        rois.shape[0], height, width, channels, vh, vw, output_size,
         float(spatial_scale), int(sampling_ratio), int(max_adaptive_grid),
-        _DTYPE_CODES[features.dtype], stream,
+        _DTYPE_CODES[src.dtype], stream,
     )
     if err != 0:
-        raise RuntimeError(f"roi_align_fwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+def _roi_align_cuda(features, rois, output_size, spatial_scale,
+                    sampling_ratio, max_adaptive_grid, valid_hw):
+    if features.dim() != 3:
+        raise ValueError(f"features must be an (H, W, C) tensor, got shape {tuple(features.shape)}")
+    height, width, channels = features.shape
+    vh, vw = _check_cuda_args("roi_align_fwd", features, rois, sampling_ratio,
+                              max_adaptive_grid, height, width, valid_hw)
+    out = torch.empty((rois.shape[0], output_size, output_size, channels),
+                      dtype=features.dtype, device=features.device)
+    _launch("roi_align_fwd", features, rois, out, height, width, channels, vh, vw,
+            output_size, spatial_scale, sampling_ratio, max_adaptive_grid)
     roi_align.kernel_launches += 1
     return out
+
+
+def _roi_align_backward_cuda(grad, rois, height, width, output_size,
+                             spatial_scale, sampling_ratio, max_adaptive_grid,
+                             valid_hw):
+    n, channels = rois.shape[0], grad.shape[-1]
+    if tuple(grad.shape) != (n, output_size, output_size, channels):
+        raise ValueError(f"grad must be (N, R, R, C) = ({n}, {output_size}, "
+                         f"{output_size}, C), got {tuple(grad.shape)}")
+    grad = grad.contiguous()
+    vh, vw = _check_cuda_args("roi_align_bwd", grad, rois, sampling_ratio,
+                              max_adaptive_grid, height, width, valid_hw)
+    # the kernel adds into a float32 scratch, rounded once to the dtype
+    dfeat = torch.zeros((height, width, channels), dtype=torch.float32, device=grad.device)
+    _launch("roi_align_bwd", grad, rois, dfeat, height, width, channels, vh, vw,
+            output_size, spatial_scale, sampling_ratio, max_adaptive_grid)
+    roi_align_backward.kernel_launches += 1
+    return dfeat.to(grad.dtype)
+
+
+def _device_type(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"roi_align runs on cpu or cuda tensors, not {t.device}")
+    return t.device.type
+
+
+def roi_align_backward(
+    grad: torch.Tensor,
+    rois: torch.Tensor,
+    height: int,
+    width: int,
+    output_size: int = 7,
+    spatial_scale: float = 1.0 / 16.0,
+    sampling_ratio: int = 0,
+    max_adaptive_grid: int = 2,
+    valid_hw=None,
+) -> torch.Tensor:
+    """RoIAlign backward: grad (N, R, R, C) -> d features (H, W, C).
+
+    CPU tensors take :func:`roi_align_backward_plain`; CUDA tensors launch
+    the kernel (counted in ``roi_align_backward.kernel_launches``) or raise.
+    """
+    args = (grad, rois, height, width, output_size, spatial_scale,
+            sampling_ratio, max_adaptive_grid, valid_hw)
+    if _device_type(grad) == "cpu":
+        return roi_align_backward_plain(*args)
+    return _roi_align_backward_cuda(*args)
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """RoIAlign with its backward: the CUDA kernels on CUDA tensors, the
+    plain versions on CPU tensors (counterpart of cim_tpu's custom_vjp
+    around roi_align_pallas). Only the features get a gradient."""
+
+    @staticmethod
+    def forward(ctx, features, rois, output_size, spatial_scale,
+                sampling_ratio, max_adaptive_grid, valid_hw):
+        ctx.save_for_backward(rois)
+        ctx.args = (features.shape[0], features.shape[1], output_size,
+                    spatial_scale, sampling_ratio, max_adaptive_grid, valid_hw)
+        args = (features, rois, output_size, spatial_scale, sampling_ratio,
+                max_adaptive_grid, valid_hw)
+        if features.device.type == "cpu":
+            return roi_align_plain(*args)
+        return _roi_align_cuda(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (rois,) = ctx.saved_tensors
+        dfeat = roi_align_backward(grad, rois, *ctx.args) if ctx.needs_input_grad[0] else None
+        return dfeat, None, None, None, None, None, None
 
 
 def roi_align(
@@ -171,18 +301,17 @@ def roi_align(
     max_adaptive_grid: int = 2,
     valid_hw=None,
 ) -> torch.Tensor:
-    """RoIAlign forward: features (H, W, C), rois (N, 4) -> (N, R, R, C).
+    """RoIAlign: features (H, W, C), rois (N, 4) -> (N, R, R, C), with a
+    gradient for the features.
 
-    CPU tensors take :func:`roi_align_plain`; CUDA tensors launch the
-    kernel (counted in ``roi_align.kernel_launches``) or raise.
+    CPU tensors take the plain versions; CUDA tensors launch the kernels
+    (counted in ``roi_align.kernel_launches`` and
+    ``roi_align_backward.kernel_launches``) or raise.
     """
-    if features.device.type == "cpu":
-        return roi_align_plain(features, rois, output_size, spatial_scale,
-                               sampling_ratio, max_adaptive_grid, valid_hw)
-    if features.device.type == "cuda":
-        return _roi_align_cuda(features, rois, output_size, spatial_scale,
-                               sampling_ratio, max_adaptive_grid, valid_hw)
-    raise ValueError(f"roi_align runs on cpu or cuda tensors, not {features.device}")
+    _device_type(features)
+    return RoIAlignFunction.apply(features, rois, output_size, spatial_scale,
+                                  sampling_ratio, max_adaptive_grid, valid_hw)
 
 
 roi_align.kernel_launches = 0
+roi_align_backward.kernel_launches = 0

@@ -41,15 +41,32 @@ def _bn(sd, name, params, stats):
     sd[name + ".running_var"] = _tensor(stats["var"])
 
 
+def _tiny_body(sd, bp):
+    """cim_tpu.models.tiny's four biased convs -> Conv_Body.conv{i}."""
+    for i in range(len(bp)):
+        p = bp[f"conv{i}"]["conv"]
+        sd[f"Conv_Body.conv{i}.weight"] = _conv(p)
+        sd[f"Conv_Body.conv{i}.bias"] = _tensor(p["bias"])
+
+
 def state_dict_from_jax(variables, conv_body: str = "resnet50",
                         refine_times: int = 3) -> Dict[str, torch.Tensor]:
-    """flax CIMModel variables -> reference-named float32 CPU tensors."""
-    if not conv_body.startswith("resnet50"):
-        raise NotImplementedError(f"conv body {conv_body!r} is not ported yet")
+    """flax CIMModel variables -> reference-named float32 CPU tensors.
+    conv_body: a cfg.MODEL.CONV_BODY name, or its prefix ("resnet50",
+    "tiny")."""
     params, stats = variables["params"], variables.get("stats", {})
     sd: Dict[str, torch.Tensor] = {}
+    if conv_body.startswith("tiny"):
+        _tiny_body(sd, params["conv_body"])
+    elif conv_body.startswith("resnet50"):
+        _resnet50_body(sd, params["conv_body"], stats["conv_body"])
+    else:
+        raise NotImplementedError(f"conv body {conv_body!r} is not ported yet")
+    _heads(sd, params, refine_times)
+    return sd
 
-    bp, bs = params["conv_body"], stats["conv_body"]
+
+def _resnet50_body(sd, bp, bs):
     sd["Conv_Body.res1.0.weight"] = _conv(bp["res1_conv"]["conv"])
     _bn(sd, "Conv_Body.res1.1", bp["res1_bn"], bs["res1_bn"])
     for stage, blocks in _STAGES.items():
@@ -63,6 +80,8 @@ def state_dict_from_jax(variables, conv_body: str = "resnet50",
                 sd[f"{pre}.downsample.0.weight"] = _conv(p["downsample_conv"]["conv"])
                 _bn(sd, f"{pre}.downsample.1", p["downsample_bn"], s["downsample_bn"])
 
+
+def _heads(sd, params, refine_times):
     hp = params["box_head"]
     sd["Box_Head.mask_branch.0.weight"] = _conv(hp["mask_branch"]["conv"])
     sd["Box_Head.mask_branch.0.bias"] = _tensor(hp["mask_branch"]["conv"]["bias"])
@@ -75,4 +94,3 @@ def state_dict_from_jax(variables, conv_body: str = "resnet50",
     for k in range(refine_times):
         _dense(sd, f"cls_iou_model.refine_cls.{k}", cp[f"refine_cls{k}"])
         _dense(sd, f"cls_iou_model.refine_iou.{k}", cp[f"refine_iou{k}"])
-    return sd

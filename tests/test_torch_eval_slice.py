@@ -18,6 +18,7 @@ from cim_tpu.data.synthetic import write_synthetic_coco_dataset
 from cim_tpu.engine import test as jax_test
 from cim_tpu.engine import test_engine as jax_engine
 from cim_tpu.models.builder import build_model as build_jax_model
+from cim_tpu_torch.data import catalog as torch_catalog
 from cim_tpu_torch.engine import test as torch_test
 from cim_tpu_torch.engine import test_engine as torch_engine
 from tests.torch_parity import init_variables, random_rois, small_cfg, torch_model
@@ -38,9 +39,10 @@ def runs(tmp_path_factory):
     _, props = write_synthetic_coco_dataset(
         str(tmp), 3, N_PROPS, np.random.RandomState(4), image_hw=IMAGE_HW
     )
-    catalog.register_dataset("torch_eval_slice", {
-        catalog.IM_DIR: str(tmp), catalog.ANN_FN: str(tmp / "ann.json"),
-    })
+    for cat in (catalog, torch_catalog):  # each package has its own catalog
+        cat.register_dataset("torch_eval_slice", {
+            cat.IM_DIR: str(tmp), cat.ANN_FN: str(tmp / "ann.json"),
+        })
     cfg = small_cfg(from_yaml=True)
     cfg.DATA_DIR = str(tmp)
     cfg.TEST.DATASETS = ("torch_eval_slice",)
@@ -57,7 +59,7 @@ def runs(tmp_path_factory):
     )
     model = torch_model(cfg, variables)
     got = torch_engine.run_inference(
-        cfg, model, str(tmp / "torch"), image_loader=_image_loader,
+        cfg, model, str(tmp / "torch"), image_loader=_image_loader, device="cpu",
     )
     return cfg, model, variables, want, got
 
@@ -119,7 +121,7 @@ def test_single_pass_matches_jax(runs, transform_mode):
     want, _ = jax_test.Evaluator(cfg, build_jax_model(cfg), variables).im_detect_all(
         im, boxes, masks
     )
-    evaluator = torch_test.Evaluator(cfg, model)
+    evaluator = torch_test.Evaluator(cfg, model, device="cpu")
     assert evaluator.tta_pass_list(cfg) == [(IMAGE_HW[1], False)]
     got, _ = evaluator.im_detect_all(im, boxes, masks)
     assert got.shape == want.shape == (N_PROPS, 20)
@@ -131,6 +133,6 @@ def test_batched_eval_not_ported(runs):
     cfg.TPU.EVAL_BATCH = 8
     try:
         with pytest.raises(NotImplementedError, match="EVAL_BATCH"):
-            torch_engine.run_inference(cfg, model, os.path.join(cfg.DATA_DIR, "b8"))
+            torch_engine.run_inference(cfg, model, os.path.join(cfg.DATA_DIR, "b8"), device="cpu")
     finally:
         cfg.TPU.EVAL_BATCH = 1

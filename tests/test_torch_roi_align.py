@@ -1,16 +1,21 @@
 """The port's RoIAlign against cim_tpu's, on the CPU.
 
-The plain PyTorch version (the CPU path of cim_tpu_torch.ops.roi_align and
-the oracle of its CUDA kernel) is held against:
+The plain PyTorch versions (the CPU path of cim_tpu_torch.ops.roi_align
+and the oracles of its CUDA kernels), forward and backward, are held
+against:
 - the XLA op cim_tpu.ops.roi_align.roi_align, at grid caps 2 (cim_tpu's XLA
-  path, TPU.MAX_ADAPTIVE_GRID) and 4 (its Pallas path);
-- the Pallas kernel roi_align_pallas in interpret mode, at cap 4.
-The CUDA kernel has no CPU or interpret mode: the tests marked ``cuda``
-hold it against the plain version on the card and skip without one
-(chip_smoke.py does the same at the eval path's full shapes).
+  path, TPU.MAX_ADAPTIVE_GRID) and 4 (its Pallas path), and its jax.grad;
+- the Pallas kernel roi_align_pallas in interpret mode, at cap 4, and the
+  jax.grad through its custom_vjp (the TPU _bwd_kernel).
+Backward comparisons take the gradient of sum(roi_align(F) * G) with
+respect to F for a seeded G, in float32 (rtol 1e-4, atol 1e-5: sums in
+another order). The CUDA kernels have no CPU or interpret mode: the tests
+marked ``cuda`` hold them against the plain versions on the card and skip
+without one (chip_smoke.py does the same at the main paths' full shapes).
 """
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +24,12 @@ from jax.experimental import pallas as pl
 
 import cim_tpu.ops.pallas.roi_align_kernel as rak
 from cim_tpu.ops.roi_align import roi_align as jax_roi_align
-from cim_tpu_torch.ops.roi_align import roi_align, roi_align_plain
+from cim_tpu_torch.ops.roi_align import (
+    roi_align,
+    roi_align_backward,
+    roi_align_backward_plain,
+    roi_align_plain,
+)
 
 N = 7
 
@@ -114,6 +124,89 @@ def test_plain_no_rois(rng):
     assert out.shape == (0, 7, 7, feat.shape[2])
 
 
+def _grad_case(rng, scale, padded, **kw):
+    feat, rois, valid = _case(rng, scale, **kw)
+    if not padded:
+        feat = np.ascontiguousarray(feat[: valid[0], : valid[1]])
+        valid = None
+    g = rng.randn(N, 7, 7, feat.shape[2]).astype(np.float32)
+    return feat, rois, valid, g
+
+
+def _jax_grad(fn, feat, g):
+    return np.asarray(jax.grad(lambda f: jnp.sum(fn(f) * g))(jnp.asarray(feat)))
+
+
+def _torch_grads(feat, rois, g, sampling_ratio, cap, valid, scale=1 / 16):
+    """(roi_align_backward_plain, autograd through roi_align) on the CPU."""
+    plain = roi_align_backward_plain(
+        torch.from_numpy(g), torch.from_numpy(rois), feat.shape[0], feat.shape[1],
+        7, scale, sampling_ratio, cap, valid).numpy()
+    f = torch.from_numpy(feat).requires_grad_()
+    out = roi_align(f, torch.from_numpy(rois), 7, scale, sampling_ratio, cap, valid)
+    (out * torch.from_numpy(g)).sum().backward()
+    return plain, f.grad.numpy()
+
+
+@pytest.mark.parametrize("sampling_ratio", [0, 2])
+@pytest.mark.parametrize("padded", [False, True])
+def test_backward_plain_matches_pallas_grad(rng, interpret_mode, sampling_ratio, padded):
+    """Against jax.grad through roi_align_pallas (its _bwd_kernel), cap 4,
+    N = 7 ROIs (not a multiple of the kernel's 16-ROI block)."""
+    feat, rois, valid, g = _grad_case(rng, 1 / 16, padded)
+    want = _jax_grad(lambda f: rak.roi_align_pallas(
+        f, jnp.asarray(rois), 7, 1 / 16, sampling_ratio, 4, 4, 4, valid_hw=valid), feat, g)
+    plain, auto = _torch_grads(feat, rois, g, sampling_ratio, 4, valid)
+    assert plain.shape == feat.shape
+    np.testing.assert_allclose(plain, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(auto, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("scale", [1 / 16, 1 / 8])
+@pytest.mark.parametrize("sampling_ratio", [0, 2])
+def test_backward_plain_matches_xla_grad(rng, scale, sampling_ratio):
+    """Against jax.grad of the XLA roi_align at cim_tpu's XLA cap 2, on a
+    padded bucket."""
+    feat, rois, valid, g = _grad_case(rng, scale, padded=True)
+    want = _jax_grad(lambda f: jax_roi_align(
+        f, jnp.asarray(rois), output_size=7, spatial_scale=scale,
+        sampling_ratio=sampling_ratio, aligned=True, max_adaptive_grid=2,
+        valid_hw=valid), feat, g)
+    plain, auto = _torch_grads(feat, rois, g, sampling_ratio, 2, valid, scale)
+    np.testing.assert_allclose(plain, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(auto, want, rtol=1e-4, atol=1e-5)
+
+
+def test_backward_plain_is_autograd_of_plain_forward(rng):
+    """The scatter form equals torch's own autograd through the gather
+    form of roi_align_plain, and the padded bucket's pad gets zero."""
+    feat, rois, valid, g = _grad_case(rng, 1 / 16, padded=True)
+    f = torch.from_numpy(feat).requires_grad_()
+    (roi_align_plain(f, torch.from_numpy(rois), 7, 1 / 16, 0, 4, valid)
+     * torch.from_numpy(g)).sum().backward()
+    plain, _ = _torch_grads(feat, rois, g, 0, 4, valid)
+    np.testing.assert_allclose(plain, f.grad.numpy(), rtol=1e-5, atol=1e-6)
+    assert not plain[valid[0]:].any() and not plain[:, valid[1]:].any()
+
+
+def test_backward_plain_bf16_sums_in_f32(rng):
+    """bf16 grads give a bf16 result: the f32 sum rounded once."""
+    feat, rois, valid, g = _grad_case(rng, 1 / 16, padded=True, c=16)
+    gb = torch.from_numpy(g).to(torch.bfloat16)
+    args = (torch.from_numpy(rois), feat.shape[0], feat.shape[1], 7, 1 / 16, 0, 4, valid)
+    got = roi_align_backward_plain(gb, *args)
+    want = roi_align_backward_plain(gb.float(), *args)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want.to(torch.bfloat16), rtol=0, atol=0)
+
+
+def test_cpu_backward_launches_no_kernel(rng):
+    feat, rois, valid, g = _grad_case(rng, 1 / 16, padded=True)
+    before = roi_align_backward.kernel_launches
+    _torch_grads(feat, rois, g, 0, 4, valid)
+    assert roi_align_backward.kernel_launches == before
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
@@ -142,9 +235,39 @@ def test_kernel_matches_plain_on_cuda(rng, dtype, sampling_ratio, channels):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_grad_on_cuda(rng):
+@pytest.mark.parametrize("channels", [72, 5], ids=["c72", "c5"])
+@pytest.mark.parametrize("sampling_ratio", [0, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_kernel_matches_plain_on_cuda(rng, dtype, sampling_ratio, channels):
+    """The backward kernel against roi_align_backward_plain on the same
+    CUDA inputs. Its f32 atomic adds sum in a run-dependent order: float32
+    within 1e-5 of max |dF|; bf16 within one output rounding (1e-2 of
+    max |dF|)."""
+    _cuda_or_skip()
+    feat, rois, valid, g = _grad_case(rng, 1 / 16, padded=True, c=channels)
+    g = torch.from_numpy(g).cuda().to(dtype)
+    args = (torch.from_numpy(rois).cuda(), feat.shape[0], feat.shape[1], 7, 1 / 16,
+            sampling_ratio, 4, valid)
+    before = roi_align_backward.kernel_launches
+    got = roi_align_backward(g, *args)
+    want = roi_align_backward_plain(g, *args)
+    assert roi_align_backward.kernel_launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape == feat.shape
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    atol = rel * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_kernel_launches_backward_on_cuda(rng):
+    """Autograd through roi_align on CUDA features runs the forward kernel
+    once and the backward kernel once."""
     _cuda_or_skip()
     feat, rois, valid = _case(rng, 1 / 16)
     feat = torch.from_numpy(feat).cuda().requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        roi_align(feat, torch.from_numpy(rois).cuda(), valid_hw=valid)
+    fwd, bwd = roi_align.kernel_launches, roi_align_backward.kernel_launches
+    out = roi_align(feat, torch.from_numpy(rois).cuda(), valid_hw=valid)
+    out.sum().backward()
+    assert roi_align.kernel_launches == fwd + 1
+    assert roi_align_backward.kernel_launches == bwd + 1
+    assert feat.grad.shape == feat.shape and torch.isfinite(feat.grad).all()

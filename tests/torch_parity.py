@@ -69,7 +69,7 @@ def init_variables(cfg, seed: int = 0):
 
 def torch_model(cfg, variables):
     """The port's CIMModel on the CPU with ``variables`` loaded."""
-    model = build_torch_model(cfg)
+    model = build_torch_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(variables, refine_times=cfg.REFINE_TIMES),
                           strict=True)
     return model
