@@ -15,7 +15,9 @@ of which fails the run:
   roi_align_bwd    the backward kernel against its plain version on the
                    card, at the train path's shapes (scales 480 and 1200,
                    N 2048 / 2047 / 4096 with zero-area padding ROIs,
-                   float32 and bf16, grid caps 4 and 2)
+                   float32 and bf16, grid caps 4 and 2) and at stride 8
+                   (30 row bands, a part-filled channel slice); each
+                   twice, to the same bits
   reference        the full-width model in float32: the card (kernels)
                    against the CPU (plain versions) on one small image with
                    two TTA passes
@@ -39,12 +41,14 @@ of which fails the run:
                    against the uninterrupted trainer
 
 With --profile, one more training step (scale 1200, 2048 proposals) runs
-under torch.profiler and its device time by operator and by phase
-(cim.forward, cim.losses, cim.mining, cim.backward, cim.optimizer) is
-printed.
+under torch.profiler and its device time by operator, by phase
+(cim.forward, cim.losses, cim.mining, cim.backward, cim.optimizer) and of
+each of the port's kernels is printed.
 
-The line before the last is a JSON object with the kernels' launches,
-errors, times and bounds; the last line is {"ok": true, "device": {...}}.
+The card's nvidia-smi name and power limit come on the [device] line and
+again on a line of their own; the line before the last is a JSON object
+with the kernels' launches, errors, times and bounds; the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -93,10 +97,10 @@ EVAL_FEAT = (60, 76, 1024)
 EVAL_VALID = (57, 75)
 F32_ATOL = 1e-5  # forward kernel vs plain in float32: sums in another order only
 BF16_REL = 1e-2  # bf16: one output rounding, relative to max |output|
-# backward: the kernel's float32 atomic adds sum each cell in a
-# run-dependent order (and so does the plain version's index_add_ on the
-# card), so a cell's f32 sum may differ by a few ulp of the sum of its
-# terms' magnitudes: bound = BWD_F32_REL * max over cells of sum |terms|
+# backward: the kernel sums each cell in ROI order, the plain version's
+# index_add_ on the card in a run-dependent one, so a cell's f32 sum may
+# differ by a few ulp of the sum of its terms' magnitudes:
+# bound = BWD_F32_REL * max over cells of sum |terms|
 BWD_F32_REL = 1e-5
 # the H100 SXM's published peaks: HBM bytes/s, and
 # operations/s by input type (bf16 on the tensor cores; f32 outside them)
@@ -238,30 +242,37 @@ def phase_roi_align_bwd():
     shapes come first: a 375x500 image at scale 1200 (target over the
     long side: a 960x1216 bucket, 60x76 features) and 480 (384x512, 24x32),
     N 2048 and the 4096 cap. Then zero-padded buckets with a smaller valid
-    extent, float32, N 2047 and grid cap 2. Returns the scale-1200 bf16
-    N 2048 case (the train main path's) for the kernels line."""
+    extent, float32, N 2047 and grid cap 2, and the stride-8 map of the
+    1200 pass (120x152x512: 30 row bands of the kernel's plan, half a
+    channel slice). Each case runs twice and must give the same bits: the
+    kernel sums in a fixed order. Returns the scale-1200 bf16 N 2048 case
+    (the train main path's) for the kernels line."""
     rng = np.random.RandomState(SEED + 3)
     t1200, t480 = ((60, 76, 1024), (60, 76)), ((24, 32, 1024), (24, 32))
     p1200, p480 = ((76, 100, 1024), (75, 100)), ((32, 40, 1024), (30, 40))
+    s8 = ((120, 152, 512), (113, 150))
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        # (name, (features, valid), N, dtype, cap)
-        ("train1200_bf16", t1200, 2048, bf16, 4),
-        ("train1200_bf16_n4096", t1200, 4096, bf16, 4),
-        ("train480_bf16", t480, 2048, bf16, 4),
-        ("pad76x100_f32", p1200, 2048, f32, 4),
-        ("pad76x100_bf16_n2047_cap2", p1200, 2047, bf16, 2),
-        ("pad32x40_f32_n2047", p480, 2047, f32, 4),
-        ("pad32x40_f32_cap2", p480, 2048, f32, 2),
+        # (name, (features, valid), scale, N, dtype, cap)
+        ("train1200_bf16", t1200, 1 / 16, 2048, bf16, 4),
+        ("train1200_bf16_n4096", t1200, 1 / 16, 4096, bf16, 4),
+        ("train480_bf16", t480, 1 / 16, 2048, bf16, 4),
+        ("pad76x100_f32", p1200, 1 / 16, 2048, f32, 4),
+        ("pad76x100_bf16_n2047_cap2", p1200, 1 / 16, 2047, bf16, 2),
+        ("pad32x40_f32_n2047", p480, 1 / 16, 2047, f32, 4),
+        ("pad32x40_f32_cap2", p480, 1 / 16, 2048, f32, 2),
+        ("stride8_bf16_bands", s8, 1 / 8, 2048, bf16, 4),
     ]
     main_case = None
-    for name, (shape, valid), n, dtype, cap in cases:
-        _, rois = _roi_case(rng, shape, valid, 1 / 16, n, dtype)
+    for name, (shape, valid), scale, n, dtype, cap in cases:
+        _, rois = _roi_case(rng, shape, valid, scale, n, dtype)
         g = torch.from_numpy(rng.randn(n, 7, 7, shape[2]).astype(np.float32)).cuda()
         g[-48:] = 0.0
         g = g.to(dtype)
-        args = (rois, shape[0], shape[1], 7, 1 / 16, 0, cap, valid)
+        args = (rois, shape[0], shape[1], 7, scale, 0, cap, valid)
+        plan = ra.bwd_launch_plan(*shape, rois.device)
         out = roi_align_backward(g, *args)
+        again = roi_align_backward(g, *args)
         torch.cuda.synchronize()
         ref = roi_align_backward_plain(g, *args)
         mag = roi_align_backward_plain(g.float().abs(), *args)  # sum |terms| per cell
@@ -269,6 +280,7 @@ def phase_roi_align_bwd():
               f"{name}: output shape and dtype")
         check(not out[valid[0]:].any() and not out[:, valid[1]:].any(),
               f"{name}: the pad of the bucket gets zero gradient")
+        check(torch.equal(out, again), f"{name}: two runs give the same bits")
         err = (out.float() - ref.float()).abs().max().item()
         tol = BWD_F32_REL * mag.abs().max().item()
         if dtype == bf16:
@@ -276,18 +288,20 @@ def phase_roi_align_bwd():
         k_ms = cuda_ms(lambda: roi_align_backward(g, *args), 20)
         p_ms = cuda_ms(lambda: roi_align_backward_plain(g, *args), 3)
         n_bytes = g.numel() * g.element_size() + rois.numel() * 4 + out.numel() * out.element_size()
-        cells = tap_cells(rois, shape[1], valid, 1 / 16, 0, cap)
+        cells = tap_cells(rois, shape[1], valid, scale, 0, cap)
         b_ms, b_by = bound(n_bytes, 2.0 * shape[2] * cells, dtype)
-        log(f"[roi_align_bwd] {name}: features {shape} valid {valid} N {n} {str(dtype)[6:]} "
-            f"cap {cap}: max_abs_err {err:.3g} (bound {tol:.3g}: atomics sum in a "
-            f"run-dependent order{', plus one bf16 rounding' if dtype == bf16 else ''}), "
+        log(f"[roi_align_bwd] {name}: features {shape} valid {valid} scale 1/{round(1 / scale)} "
+            f"N {n} {str(dtype)[6:]} cap {cap}, plan {plan._asdict()}: max_abs_err {err:.3g} "
+            f"(bound {tol:.3g}: f32 sums in another order than the plain version's"
+            f"{', plus one bf16 rounding' if dtype == bf16 else ''}), two runs the same bits, "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} "
             f"({cells} tap cells, {n_bytes / 1e6:.1f} MB)")
         check(err <= tol, f"{name}: backward kernel agrees with the plain version")
         if name == "train1200_bf16":
             main_case = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        del out, ref, mag, g
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                         "plan": plan._asdict()}
+        del out, again, ref, mag, g
     return main_case
 
 
@@ -656,6 +670,11 @@ def phase_train_profile(trainer, batch, timed):
         if e.key.startswith("cim.") and e.device_type == DeviceType.CPU:
             log(f"[profile] {e.key}: {e.count} ranges, host {e.cpu_time_total / 1e3:.1f} ms, "
                 f"device {e.device_time_total / 1e3:.1f} ms")
+    # the port's own kernels, however small (the RoIAlign backward is three)
+    for name in ("roi_align_fwd_kernel", "bwd_taps_kernel", "bwd_tile_kernel", "bwd_sum_kernel"):
+        found = [e for e in events if e.device_type == DeviceType.CUDA and name in e.key]
+        log(f"[profile] {name}: device {sum(e.self_device_time_total for e in found) / 1e3:.3f} ms "
+            f"in {sum(e.count for e in found)} launches")
     log(events.table(sort_by="self_device_time_total", row_limit=40, max_name_column_width=70))
 
 
@@ -685,6 +704,7 @@ def main():
         train_fwd, train_bwd = phase_train(card, work_dir, profile=args.profile)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
+    print(card)
     print(json.dumps({"kernels": [
         {
             "name": "roi_align_fwd",
@@ -705,7 +725,6 @@ def main():
             **bwd_kernel,
         },
     ]}))
-    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

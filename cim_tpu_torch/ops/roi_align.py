@@ -19,12 +19,23 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from cim_tpu_torch.ops import _build
 
 MAX_GRID = 64  # samples per bin and axis that the CUDA kernel holds (kMaxGrid)
+
+# the backward kernel's tiles (csrc/roi_align_bwd.cu)
+BWD_MAX_BINS = 7  # bins per axis its tap tables hold (kMaxR)
+BWD_ENTRY_WORDS = 8  # 32-bit words of a tap-table entry (kEntry)
+BWD_TILE = 4  # a block's tile of dF: BWD_TILE x BWD_TILE cells (kTile)
+BWD_SLICE = 1024  # channels of a block's slice (kSlice)
+BWD_SLOT_BYTES = 28 * 1024  # bins of g a stage holds (kSlotBytes)
+BWD_STAGES = 3  # cp.async ring depth (kStages)
+BWD_LIST_CAP = 2048  # ROI entries a block lists at a time (kListCap)
+BWD_BLOCKS_PER_SM = 2  # blocks an SM at the least, made up by splitting the ROIs
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -158,7 +169,7 @@ def roi_align_backward_plain(
 
 def _load(name: str):
     """The launcher of csrc/<name>.cu, built on first use; both kernels
-    take the same arguments."""
+    take the same arguments, the backward its scratch and plan after them."""
     fn = getattr(_build.load(name), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -168,6 +179,8 @@ def _load(name: str):
         ctypes.c_float, ctypes.c_int, ctypes.c_int,  # scale, sampling_ratio, cap
         ctypes.c_int, ctypes.c_void_p,  # dtype code, stream
     ]
+    if name == "roi_align_bwd":  # scratch; splits, shared bytes
+        fn.argtypes += [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     return fn
 
 
@@ -194,16 +207,73 @@ def _check_cuda_args(what, t, rois, sampling_ratio, max_adaptive_grid, height,
 
 
 def _launch(name, src, rois, out, height, width, channels, vh, vw, output_size,
-            spatial_scale, sampling_ratio, max_adaptive_grid):
+            spatial_scale, sampling_ratio, max_adaptive_grid, extra=()):
     stream = torch.cuda.current_stream(src.device).cuda_stream
     err = _kernel(name)(
         src.data_ptr(), rois.data_ptr(), out.data_ptr(),
         rois.shape[0], height, width, channels, vh, vw, output_size,
         float(spatial_scale), int(sampling_ratio), int(max_adaptive_grid),
-        _DTYPE_CODES[src.dtype], stream,
+        _DTYPE_CODES[src.dtype], stream, *extra,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel cuts dF (H, W, C) into blocks."""
+    cs: int  # channels of a block's slice
+    band_rows: int  # rows of a block's tile
+    tile_cols: int  # columns of a block's tile
+    splits: int  # runs of the ROIs summed apart, then added up in order
+    blocks: int
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+def _bwd_plan(height: int, width: int, channels: int, smem_bytes: int, sms: int,
+              output_size: int = 7) -> BwdPlan:
+    """The backward kernel's plan for dF (height, width, channels) on a card
+    with ``sms`` multiprocessors and ``smem_bytes`` of opt-in shared memory
+    a block.
+
+    A block sums a BWD_TILE x BWD_TILE tile of cells over a slice of
+    BWD_SLICE channels in registers; tiles and slices cut dF. When there
+    are fewer of them than BWD_BLOCKS_PER_SM a multiprocessor, the ROIs are
+    split into runs, one block each, so that the card fills. A block's
+    shared memory holds its list of ROIs and BWD_STAGES stages of one
+    ROI's bins of g and its tap-table entries for the tile.
+    """
+    if not 1 <= output_size <= BWD_MAX_BINS:
+        raise ValueError(f"the backward kernel holds 1 to {BWD_MAX_BINS} bins per axis, "
+                         f"got output_size {output_size}")
+    tiles = -(-channels // BWD_SLICE) * -(-height // BWD_TILE) * -(-width // BWD_TILE)
+    splits = -(-BWD_BLOCKS_PER_SM * sms // tiles)
+    smem = BWD_LIST_CAP * 8 + BWD_STAGES * (BWD_SLOT_BYTES + 2 * BWD_TILE * BWD_ENTRY_WORDS * 4)
+    if smem > smem_bytes:
+        raise ValueError(f"the backward kernel's {smem} bytes of shared memory a block "
+                         f"exceed the card's {smem_bytes}")
+    return BwdPlan(BWD_SLICE, BWD_TILE, BWD_TILE, splits, splits * tiles, smem)
+
+
+def _bwd_scratch_words(n: int, height: int, width: int, channels: int, plan: BwdPlan) -> int:
+    """32-bit words of the backward kernel's scratch: the tap tables (per
+    ROI its rectangle, an entry per row and per column), then the splits'
+    partial sums if there is more than one."""
+    words = n * (4 + (height + width) * BWD_ENTRY_WORDS)
+    return words + (plan.splits * height * width * channels if plan.splits > 1 else 0)
+
+
+@functools.cache
+def _device_limits(device: torch.device):
+    """(opt-in shared memory a block, multiprocessors) of a CUDA device."""
+    props = torch.cuda.get_device_properties(device)
+    return props.shared_memory_per_block_optin, props.multi_processor_count
+
+
+def bwd_launch_plan(height: int, width: int, channels: int, device,
+                    output_size: int = 7) -> BwdPlan:
+    """:func:`_bwd_plan` for the CUDA device the backward kernel runs on."""
+    return _bwd_plan(height, width, channels, *_device_limits(torch.device(device)),
+                     output_size)
 
 
 def _roi_align_cuda(features, rois, output_size, spatial_scale,
@@ -231,12 +301,16 @@ def _roi_align_backward_cuda(grad, rois, height, width, output_size,
     grad = grad.contiguous()
     vh, vw = _check_cuda_args("roi_align_bwd", grad, rois, sampling_ratio,
                               max_adaptive_grid, height, width, valid_hw)
-    # the kernel adds into a float32 scratch, rounded once to the dtype
-    dfeat = torch.zeros((height, width, channels), dtype=torch.float32, device=grad.device)
+    plan = bwd_launch_plan(height, width, channels, grad.device, output_size)
+    scratch = torch.empty(_bwd_scratch_words(n, height, width, channels, plan),
+                          dtype=torch.int32, device=grad.device)
+    # every element is written by the kernel, once, in grad's dtype
+    dfeat = torch.empty((height, width, channels), dtype=grad.dtype, device=grad.device)
     _launch("roi_align_bwd", grad, rois, dfeat, height, width, channels, vh, vw,
-            output_size, spatial_scale, sampling_ratio, max_adaptive_grid)
+            output_size, spatial_scale, sampling_ratio, max_adaptive_grid,
+            extra=(scratch.data_ptr(), plan.splits, plan.smem))
     roi_align_backward.kernel_launches += 1
-    return dfeat.to(grad.dtype)
+    return dfeat
 
 
 def _device_type(t: torch.Tensor) -> str:

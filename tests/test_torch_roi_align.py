@@ -24,6 +24,7 @@ from jax.experimental import pallas as pl
 
 import cim_tpu.ops.pallas.roi_align_kernel as rak
 from cim_tpu.ops.roi_align import roi_align as jax_roi_align
+from cim_tpu_torch.ops import roi_align as ra
 from cim_tpu_torch.ops.roi_align import (
     roi_align,
     roi_align_backward,
@@ -207,6 +208,42 @@ def test_cpu_backward_launches_no_kernel(rng):
     assert roi_align_backward.kernel_launches == before
 
 
+H100_SMEM_OPTIN, H100_SMS = 232448, 132  # opt-in shared memory a block, SMs
+
+
+@pytest.mark.parametrize("hwc", [(24, 32, 1024), (60, 76, 1024), (76, 100, 1024),
+                                 (75, 125, 1024), (120, 152, 512), (60, 76, 72),
+                                 (60, 76, 5)], ids=lambda v: "x".join(map(str, v)))
+def test_bwd_plan_covers_the_map_once(hwc):
+    """The backward kernel's plan at the train shapes (scales 480 and 1200,
+    the padded buckets, stride 8) and at ragged channel counts: it fits the
+    card's shared memory, fills the card, and its row bands, column tiles,
+    channel slices and runs of ROIs cover every row, column, channel and
+    ROI exactly once."""
+    height, width, channels = hwc
+    plan = ra._bwd_plan(height, width, channels, H100_SMEM_OPTIN, H100_SMS)
+    assert plan.smem <= H100_SMEM_OPTIN
+    for extent, step in ((height, plan.band_rows), (width, plan.tile_cols), (channels, plan.cs)):
+        cover = np.zeros(extent, int)
+        for start in range(0, extent, step):
+            cover[start:start + step] += 1
+        assert (cover == 1).all()
+    tiles = -(-height // plan.band_rows) * -(-width // plan.tile_cols) * -(-channels // plan.cs)
+    assert plan.blocks == plan.splits * tiles >= ra.BWD_BLOCKS_PER_SM * H100_SMS
+    assert plan.splits == 1 or (plan.splits - 1) * tiles < ra.BWD_BLOCKS_PER_SM * H100_SMS
+    n = 2047
+    runs = [(k * n // plan.splits, (k + 1) * n // plan.splits) for k in range(plan.splits)]
+    assert runs[0][0] == 0 and runs[-1][1] == n
+    assert all(a[1] == b[0] and a[0] <= a[1] for a, b in zip(runs, runs[1:]))
+
+
+def test_bwd_plan_refuses_what_the_kernel_cannot_hold():
+    with pytest.raises(ValueError, match="bins per axis"):
+        ra._bwd_plan(60, 76, 1024, H100_SMEM_OPTIN, H100_SMS, output_size=8)
+    with pytest.raises(ValueError, match="shared memory"):
+        ra._bwd_plan(60, 76, 1024, 48 * 1024, H100_SMS)
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
@@ -240,9 +277,9 @@ def test_kernel_matches_plain_on_cuda(rng, dtype, sampling_ratio, channels):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_backward_kernel_matches_plain_on_cuda(rng, dtype, sampling_ratio, channels):
     """The backward kernel against roi_align_backward_plain on the same
-    CUDA inputs. Its f32 atomic adds sum in a run-dependent order: float32
-    within 1e-5 of max |dF|; bf16 within one output rounding (1e-2 of
-    max |dF|)."""
+    CUDA inputs. Its f32 sums run in another order than the plain
+    version's: float32 within 1e-5 of max |dF|; bf16 within one output
+    rounding (1e-2 of max |dF|)."""
     _cuda_or_skip()
     feat, rois, valid, g = _grad_case(rng, 1 / 16, padded=True, c=channels)
     g = torch.from_numpy(g).cuda().to(dtype)
@@ -256,6 +293,76 @@ def test_backward_kernel_matches_plain_on_cuda(rng, dtype, sampling_ratio, chann
     rel = 1e-5 if dtype == torch.float32 else 1e-2
     atol = rel * want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+def _tile_case(rng, height=40, width=36, valid=(38, 33)):
+    """ROIs that cross every boundary of the backward kernel's row bands
+    and column tiles, one over the whole map, a few of one cell and a
+    zero-area padding row last."""
+    rois = []
+    for b in range(ra.BWD_TILE, height, ra.BWD_TILE):
+        x1 = rng.uniform(0, valid[1] * 8)
+        rois.append([x1, (b - 1.5) * 16, x1 + rng.uniform(16, valid[1] * 8), (b + 2.5) * 16])
+    for b in range(ra.BWD_TILE, width, ra.BWD_TILE):
+        y1 = rng.uniform(0, valid[0] * 8)
+        rois.append([(b - 0.7) * 16, y1, (b + 0.6) * 16, y1 + rng.uniform(16, valid[0] * 8)])
+    rois.append([0.0, 0.0, valid[1] * 16 - 1.0, valid[0] * 16 - 1.0])
+    for _ in range(4):
+        x, y = rng.uniform(0, valid[1] * 16 - 12), rng.uniform(0, valid[0] * 16 - 12)
+        rois.append([x, y, x + 10.0, y + 10.0])
+    rois.append([0.0, 0.0, 0.0, 0.0])
+    return np.asarray(rois, np.float32), (height, width), valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling_ratio", [0, 1])
+@pytest.mark.parametrize("channels", [1100, 72], ids=["c1100", "c72"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_kernel_across_tiles_on_cuda(rng, dtype, channels, sampling_ratio):
+    """A map of 10 x 9 tiles and two channel slices (1100 channels): ROIs
+    across every tile boundary, a whole-map ROI, one-cell ROIs and a
+    zero-area padding ROI with zero gradient. With one sample a bin, the
+    wide bins leave untapped rows between their samples. The kernel agrees
+    with the plain version as above and gives the same bits twice."""
+    _cuda_or_skip()
+    rois, (height, width), valid = _tile_case(rng)
+    n = rois.shape[0]
+    g = torch.from_numpy(rng.randn(n, 7, 7, channels).astype(np.float32)).cuda()
+    g[-1] = 0.0
+    g = g.to(dtype)
+    args = (torch.from_numpy(rois).cuda(), height, width, 7, 1 / 16, sampling_ratio, 4, valid)
+    got = roi_align_backward(g, *args)
+    again = roi_align_backward(g, *args)
+    want = roi_align_backward_plain(g, *args)
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=rel * want.float().abs().max().item())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_kernel_zeroes_the_pad_on_cuda(rng, dtype):
+    """The padded scale-1200 bucket, (76, 100) with a valid (75, 100), 64
+    channels: dF is allocated uninitialised, so the kernel itself writes the
+    pad, and it writes it as exactly zero."""
+    _cuda_or_skip()
+    shape, valid, n = (76, 100, 64), (75, 100), 256
+    img_h, img_w = valid[0] * 16, valid[1] * 16
+    x1, y1 = rng.uniform(0, img_w * 0.9, n), rng.uniform(0, img_h * 0.9, n)
+    rois = np.stack([x1, y1, np.minimum(x1 + rng.uniform(8, img_w * 0.6, n), img_w - 1),
+                     np.minimum(y1 + rng.uniform(8, img_h * 0.6, n), img_h - 1)], -1)
+    rois[-1] = [img_w - 40.0, img_h - 40.0, img_w - 1.0, img_h - 1.0]  # at the valid edge
+    g = torch.from_numpy(rng.randn(n, 7, 7, shape[2]).astype(np.float32)).cuda().to(dtype)
+    args = (torch.from_numpy(rois.astype(np.float32)).cuda(), shape[0], shape[1], 7,
+            1 / 16, 0, 4, valid)
+    torch.full(shape, float("nan"), dtype=dtype, device="cuda")  # leave NaNs in the cache
+    got = roi_align_backward(g, *args)
+    want = roi_align_backward_plain(g, *args)
+    assert not got[valid[0]:].any() and not got[:, valid[1]:].any()
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=rel * want.float().abs().max().item())
 
 
 @pytest.mark.cuda
