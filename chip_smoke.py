@@ -10,8 +10,13 @@ of which fails the run:
   build            compile csrc/roi_align_fwd.cu and csrc/roi_align_bwd.cu
                    with nvcc into cim_tpu_torch/_build/, both at once
   roi_align        the forward kernel against its plain PyTorch version on
-                   the card, at the eval path's shapes (float32 and bf16)
-                   and at strides 8 and 32
+                   the card, at the eval path's shapes (the maps of all five
+                   TTA scales, float32 and bf16, grid caps 4 and 2), at the
+                   square image's 76x76 map, at the train path's buckets
+                   (scales 480 and 1200, N 2048 and 4096) and at strides
+                   8 and 32; each
+                   twice, to the same bits, with its plan, and the kernel's
+                   time summed over an eval image's 10 passes
   roi_align_bwd    the backward kernel against its plain version on the
                    card, at the train path's shapes (scales 480 and 1200,
                    N 2048 / 2047 / 4096 with zero-area padding ROIs,
@@ -95,6 +100,17 @@ N_PROPS = 2000
 # the 1200 pass of a 375x500 image: a 960x1216 canvas, 900x1200 content
 EVAL_FEAT = (60, 76, 1024)
 EVAL_VALID = (57, 75)
+# the features of the eval path's TTA scales (each taken twice, with and
+# without hflip) for a 375x500 image: Evaluator._fused_forward's canvas,
+# ceil(0.75 t) x t rounded up to 64, holds content round(0.75 t) x t; the
+# map is the canvas over 16, its valid extent the content over 16 rounded up
+EVAL_PASS_MAPS = {
+    480: ((24, 32, 1024), (23, 30)),
+    576: ((28, 36, 1024), (27, 36)),
+    688: ((36, 44, 1024), (33, 43)),
+    864: ((44, 56, 1024), (41, 54)),
+    1200: (EVAL_FEAT, EVAL_VALID),
+}
 F32_ATOL = 1e-5  # forward kernel vs plain in float32: sums in another order only
 BF16_REL = 1e-2  # bf16: one output rounding, relative to max |output|
 # backward: the kernel sums each cell in ROI order, the plain version's
@@ -106,6 +122,28 @@ BWD_F32_REL = 1e-5
 # operations/s by input type (bf16 on the tensor cores; f32 outside them)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the forward kernel's cases, drawn in this order from one generator seeded
+# with SEED: (name, features, valid, scale, N, dtype, sampling_ratio, cap)
+ROI_ALIGN_CASES = [
+    ("eval_f32", EVAL_FEAT, EVAL_VALID, 1 / 16, 2048, torch.float32, 0, 4),
+    ("eval_bf16", EVAL_FEAT, EVAL_VALID, 1 / 16, 2048, torch.bfloat16, 0, 4),
+    ("eval_bf16_sr2", EVAL_FEAT, EVAL_VALID, 1 / 16, 2048, torch.bfloat16, 2, 4),
+    ("eval_bf16_n2047", EVAL_FEAT, EVAL_VALID, 1 / 16, 2047, torch.bfloat16, 0, 4),
+    ("eval_f32_n2047_cap2", EVAL_FEAT, EVAL_VALID, 1 / 16, 2047, torch.float32, 0, 2),
+    ("stride8_bf16", (120, 152, 512), (113, 150), 1 / 8, 2048, torch.bfloat16, 0, 4),
+    ("stride32_bf16", (30, 38, 2048), (29, 38), 1 / 32, 2048, torch.bfloat16, 0, 4),
+    *((f"eval{t}_bf16", *EVAL_PASS_MAPS[t], 1 / 16, 2048, torch.bfloat16, 0, 4)
+      for t in (480, 576, 688, 864)),
+    # a square image's 1200 pass: the widest valid map of the eval path
+    ("square1200_bf16", (76, 76, 1024), (75, 75), 1 / 16, 2048, torch.bfloat16, 0, 4),
+    # the padded scale-1200 train bucket in float32: the narrowest f32 slice
+    ("pad76x100_f32", (76, 100, 1024), (75, 100), 1 / 16, 2048, torch.float32, 0, 4),
+    # the train path's: its buckets' whole maps are valid (scales 1200 and
+    # 480 of a 375x500 image), N 2048 and the 4096 cap
+    ("train1200_bf16", (60, 76, 1024), (60, 76), 1 / 16, 2048, torch.bfloat16, 0, 4),
+    ("train480_bf16", (24, 32, 1024), (24, 32), 1 / 16, 2048, torch.bfloat16, 0, 4),
+    ("train1200_bf16_n4096", (60, 76, 1024), (60, 76), 1 / 16, 4096, torch.bfloat16, 0, 4),
+]
 TRAIN_STEPS = 3  # timed steps per 2048-proposal bucket
 TRAIN_SCALES = (480, 1200)
 TRAIN_N_VALID = (2000, 4000)  # a typical COB count (bucket 2048), and bench.py's cap run (4096)
@@ -174,13 +212,13 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def _roi_case(rng, feat_hw_c, valid, scale, n, dtype):
+def _roi_case(rng, feat_hw_c, valid, scale, n, dtype, device="cuda"):
     """Features with a zeroed pad (as the backbone leaves them) and n seeded
     rois across the valid canvas, the last 48 zero-area padding rows."""
     h, w, c = feat_hw_c
-    feat = torch.zeros((h, w, c), device="cuda")
+    feat = torch.zeros((h, w, c), device=device)
     feat[: valid[0], : valid[1]] = torch.from_numpy(
-        rng.randn(valid[0], valid[1], c).astype(np.float32)).cuda()
+        rng.randn(valid[0], valid[1], c).astype(np.float32)).to(device)
     img_h, img_w = valid[0] / scale, valid[1] / scale
     x1 = rng.uniform(0, img_w * 0.9, n)
     y1 = rng.uniform(0, img_h * 0.9, n)
@@ -188,50 +226,55 @@ def _roi_case(rng, feat_hw_c, valid, scale, n, dtype):
     y2 = np.minimum(y1 + rng.uniform(8, img_h * 0.6, n), img_h - 1)
     rois = np.stack([x1, y1, x2, y2], -1).astype(np.float32)
     rois[-48:] = 0.0
-    return feat.to(dtype).contiguous(), torch.from_numpy(rois).cuda()
+    return feat.to(dtype).contiguous(), torch.from_numpy(rois).to(device)
 
 
 def phase_roi_align():
-    """Forward kernel vs plain version on the same inputs; returns the
-    eval-shape bf16 case (the eval main path's) for the kernels line."""
+    """Forward kernel vs plain version on the same inputs, each case twice
+    to the same bits; returns the eval-shape bf16 case (the eval main
+    path's) for the kernels line, with the kernel's time summed over the
+    10 passes of an eval image."""
     rng = np.random.RandomState(SEED)
-    cases = [
-        # (name, features, valid, scale, N, dtype, sampling_ratio, cap)
-        ("eval_f32", EVAL_FEAT, EVAL_VALID, 1 / 16, 2048, torch.float32, 0, 4),
-        ("eval_bf16", EVAL_FEAT, EVAL_VALID, 1 / 16, 2048, torch.bfloat16, 0, 4),
-        ("eval_bf16_sr2", EVAL_FEAT, EVAL_VALID, 1 / 16, 2048, torch.bfloat16, 2, 4),
-        ("eval_bf16_n2047", EVAL_FEAT, EVAL_VALID, 1 / 16, 2047, torch.bfloat16, 0, 4),
-        ("eval_f32_n2047_cap2", EVAL_FEAT, EVAL_VALID, 1 / 16, 2047, torch.float32, 0, 2),
-        ("stride8_bf16", (120, 152, 512), (113, 150), 1 / 8, 2048, torch.bfloat16, 0, 4),
-        ("stride32_bf16", (30, 38, 2048), (29, 38), 1 / 32, 2048, torch.bfloat16, 0, 4),
-    ]
-    main_case = None
+    main_case, times = None, {}
     with torch.no_grad():
-        for name, shape, valid, scale, n, dtype, sr, cap in cases:
+        for name, shape, valid, scale, n, dtype, sr, cap in ROI_ALIGN_CASES:
             feat, rois = _roi_case(rng, shape, valid, scale, n, dtype)
             args = (feat, rois, 7, scale, sr, cap, valid)
+            plan = ra.fwd_launch_plan(*valid, shape[2], dtype, rois.device)
             out = roi_align(*args)
+            again = roi_align(*args)
             torch.cuda.synchronize()
             ref = roi_align_plain(*args)
             check(out.shape == ref.shape == (n, 7, 7, shape[2]) and out.dtype == dtype,
                   f"{name}: output shape and dtype")
+            check(torch.equal(out, again), f"{name}: two runs give the same bits")
             err = (out.float() - ref.float()).abs().max().item()
             fmax = feat.float().abs().max().item()
             tol = F32_ATOL if dtype == torch.float32 else BF16_REL * fmax
             k_ms = cuda_ms(lambda: roi_align(*args), 20)
             p_ms = cuda_ms(lambda: roi_align_plain(*args), 5)
-            n_bytes = feat.numel() * feat.element_size() + rois.numel() * 4 \
-                + out.numel() * out.element_size()
+            # F's valid cells only: the function reads no cell of the pad
+            n_bytes = valid[0] * valid[1] * shape[2] * feat.element_size() \
+                + rois.numel() * 4 + out.numel() * out.element_size()
             cells = tap_cells(rois, shape[1], valid, scale, sr, cap)
             b_ms, b_by = bound(n_bytes, 2.0 * shape[2] * cells, dtype)
+            times[name] = k_ms
             log(f"[roi_align] {name}: features {shape} valid {valid} scale 1/{round(1 / scale)} "
-                f"N {n} {str(dtype)[6:]} sampling_ratio {sr} cap {cap}: max_abs_err {err:.3g} "
-                f"(bound {tol:.3g}), kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+                f"N {n} {str(dtype)[6:]} sampling_ratio {sr} cap {cap}, plan {plan._asdict()}: "
+                f"max_abs_err {err:.3g} (bound {tol:.3g}), two runs the same bits, "
+                f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
                 f"bound {b_ms:.4f} ms by {b_by} ({cells} tap cells, {n_bytes / 1e6:.1f} MB)")
             check(err <= tol, f"{name}: kernel agrees with the plain version")
             if name == "eval_bf16":
                 main_case = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                             "plan": plan._asdict()}
+            del feat, rois, out, again, ref
+    passes = {t: times[f"eval{t}_bf16" if t != 1200 else "eval_bf16"] for t in EVAL_PASS_MAPS}
+    main_case["eval_image_ms"] = 2 * sum(passes.values())
+    log(f"[roi_align] per eval image (10 passes: each scale with and without hflip, "
+        f"bf16, N 2048, cap 4): {main_case['eval_image_ms']:.4f} ms of kernel time "
+        f"({', '.join(f'{t}: 2 x {ms:.4f}' for t, ms in passes.items())})")
     return main_case
 
 
@@ -442,6 +485,20 @@ def phase_main_path(work_dir, card):
     return launches, evaluator, roidb
 
 
+def _log_port_kernels(events, device_ms=None):
+    """Device time of each of the port's own kernels, however small (the
+    RoIAlign forward is two, the backward three), and its share of
+    ``device_ms`` where given."""
+    from torch.autograd import DeviceType
+
+    for name in ("fwd_taps_kernel", "fwd_slice_kernel", "bwd_taps_kernel", "bwd_tile_kernel",
+                 "bwd_sum_kernel"):
+        found = [e for e in events if e.device_type == DeviceType.CUDA and name in e.key]
+        ms = sum(e.self_device_time_total for e in found) / 1e3
+        share = f" ({100 * ms / device_ms:.2f} % of device busy)" if device_ms else ""
+        log(f"[profile] {name}: device {ms:.3f} ms in {sum(e.count for e in found)} launches{share}")
+
+
 def phase_profile(evaluator, entry):
     """Device time of one image's TTA by operator, against the median
     unprofiled s/image of the main path (the device's busy share)."""
@@ -458,6 +515,7 @@ def phase_profile(evaluator, entry):
                     if e.device_type == DeviceType.CUDA) / 1e3
     log(f"[profile] one image: device busy {device_ms:.1f} ms of the {median_ms:.1f} ms "
         f"median unprofiled image ({100 * device_ms / median_ms:.1f} %)")
+    _log_port_kernels(events, device_ms)
     log(events.table(sort_by="self_device_time_total", row_limit=30, max_name_column_width=70))
 
 
@@ -670,11 +728,7 @@ def phase_train_profile(trainer, batch, timed):
         if e.key.startswith("cim.") and e.device_type == DeviceType.CPU:
             log(f"[profile] {e.key}: {e.count} ranges, host {e.cpu_time_total / 1e3:.1f} ms, "
                 f"device {e.device_time_total / 1e3:.1f} ms")
-    # the port's own kernels, however small (the RoIAlign backward is three)
-    for name in ("roi_align_fwd_kernel", "bwd_taps_kernel", "bwd_tile_kernel", "bwd_sum_kernel"):
-        found = [e for e in events if e.device_type == DeviceType.CUDA and name in e.key]
-        log(f"[profile] {name}: device {sum(e.self_device_time_total for e in found) / 1e3:.3f} ms "
-            f"in {sum(e.count for e in found)} launches")
+    _log_port_kernels(events)
     log(events.table(sort_by="self_device_time_total", row_limit=40, max_name_column_width=70))
 
 

@@ -58,6 +58,9 @@
 namespace {
 
 using roi_align::AxisSample;
+using roi_align::cp_async16;
+using roi_align::cp_async_commit;
+using roi_align::cp_async_wait;
 using roi_align::Cvt;
 using roi_align::kMaxGrid;
 
@@ -158,18 +161,6 @@ __global__ void bwd_taps_kernel(const float* __restrict__ rois,
 }
 
 // ---------------------------------------------------------------- tiles
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // The bins p of one axis whose samples can tap a cell of [t0, t1], as
 // first | last << 8, or -1 if none: a superset of the exact taps, from the

@@ -1,8 +1,8 @@
 // Shared pieces of the RoIAlign forward and backward kernels
 // (roi_align_fwd.cu, roi_align_bwd.cu): the ROI geometry, the per-axis
-// bilinear samples and the dtype conversions. Both kernels take their
-// sample rows, columns and weights from here, so the backward scatters to
-// exactly the cells, with exactly the weights, that the forward gathers.
+// bilinear samples, the dtype conversions and cp.async. Both kernels take
+// their sample rows, columns and weights from here, so the backward scatters
+// to exactly the cells, with exactly the weights, that the forward gathers.
 //
 // Semantics (mmcv RoIAlign, aligned=True, as cim_tpu.ops.roi_align):
 //   - coordinates are roi * spatial_scale - 0.5, no minimum ROI size;
@@ -87,18 +87,18 @@ __device__ __forceinline__ AxisSample axis_sample(float lo, float bin, int g,
   return out;
 }
 
-// Fill ys[0..gh) and xs[0..gw) for output bin (py, px) of the ROI, with
-// the block's threads; the caller synchronises afterwards.
-__device__ __forceinline__ void bin_samples(const RoiGeom& g, int py, int px,
-                                            int vh, int vw, AxisSample* ys,
-                                            AxisSample* xs) {
-  for (int i = threadIdx.x; i < g.gh + g.gw; i += blockDim.x) {
-    if (i < g.gh) {
-      ys[i] = axis_sample(g.y1, g.bin_h, g.gh, i, py, vh);
-    } else {
-      xs[i - g.gh] = axis_sample(g.x1, g.bin_w, g.gw, i - g.gh, px, vw);
-    }
-  }
+// 16-byte copies from global to shared memory that complete
+// asynchronously (sm_80 and later); a group is committed, then waited for.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 inline bool aligned16(const void* p) {

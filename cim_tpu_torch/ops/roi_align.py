@@ -25,7 +25,11 @@ import torch
 
 from cim_tpu_torch.ops import _build
 
-MAX_GRID = 64  # samples per bin and axis that the CUDA kernel holds (kMaxGrid)
+MAX_GRID = 64  # samples per bin and axis that the CUDA kernels hold (kMaxGrid)
+
+# the forward kernel's channel slices a cell, in bytes (csrc/roi_align_fwd.cu)
+FWD_MAX_CELL_BYTES = 128
+FWD_MIN_CELL_BYTES = 8
 
 # the backward kernel's tiles (csrc/roi_align_bwd.cu)
 BWD_MAX_BINS = 7  # bins per axis its tap tables hold (kMaxR)
@@ -38,6 +42,7 @@ BWD_LIST_CAP = 2048  # ROI entries a block lists at a time (kListCap)
 BWD_BLOCKS_PER_SM = 2  # blocks an SM at the least, made up by splitting the ROIs
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def _axis_taps(coord, valid: int):
@@ -167,9 +172,16 @@ def roi_align_backward_plain(
     return dfeat.reshape(height, width, channels).to(grad.dtype)
 
 
+# the arguments each kernel takes after the common ones: its scratch, then its plan
+_PLAN_ARGTYPES = {
+    "roi_align_fwd": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int],  # cs, groups, smem
+    "roi_align_bwd": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int],  # splits, smem
+}
+
+
 def _load(name: str):
     """The launcher of csrc/<name>.cu, built on first use; both kernels
-    take the same arguments, the backward its scratch and plan after them."""
+    take the same arguments, then each its scratch and plan."""
     fn = getattr(_build.load(name), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -178,9 +190,8 @@ def _load(name: str):
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # vh, vw, r
         ctypes.c_float, ctypes.c_int, ctypes.c_int,  # scale, sampling_ratio, cap
         ctypes.c_int, ctypes.c_void_p,  # dtype code, stream
+        *_PLAN_ARGTYPES[name],
     ]
-    if name == "roi_align_bwd":  # scratch; splits, shared bytes
-        fn.argtypes += [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     return fn
 
 
@@ -217,6 +228,53 @@ def _launch(name, src, rois, out, height, width, channels, vh, vw, output_size,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+class FwdPlan(NamedTuple):
+    """How the forward kernel cuts the feature map's channels and the ROIs
+    into blocks."""
+    cs: int  # channels of a block's slice
+    groups: int  # groups of ROIs: ROI n goes to group n % groups
+    blocks: int  # slices x groups
+    smem: int  # dynamic shared memory of a block, bytes: the slice of the valid map
+
+
+def _fwd_plan(vh: int, vw: int, channels: int, elem_bytes: int, smem_bytes: int,
+              sms: int) -> FwdPlan:
+    """The forward kernel's plan for a valid extent (vh, vw) of a map of
+    ``channels`` channels of ``elem_bytes`` bytes, on a card with ``sms``
+    multiprocessors and ``smem_bytes`` of opt-in shared memory a block.
+
+    A block holds a channel slice of every valid cell in shared memory: the
+    widest slice, a power of two of FWD_MIN_CELL_BYTES to FWD_MAX_CELL_BYTES
+    bytes a cell, that fits, and no wider than the channels need. Slices
+    cut the channels; the ROIs are dealt round into groups (ROI n to group
+    n % groups), so that slices x groups blocks fill the card in one wave.
+    A block has 1024 threads, whose registers fill a multiprocessor, so an
+    SM runs one block at a time.
+    """
+    cells = vh * vw
+    cs = FWD_MAX_CELL_BYTES // elem_bytes
+    while cs * elem_bytes > FWD_MIN_CELL_BYTES and (
+            cs // 2 >= channels or cells * cs * elem_bytes > smem_bytes):
+        cs //= 2
+    smem = cells * cs * elem_bytes
+    if smem > smem_bytes:
+        raise ValueError(f"the forward kernel's narrowest slice of the valid {vh}x{vw} map, "
+                         f"{smem} bytes, exceeds the card's {smem_bytes} bytes of shared "
+                         f"memory a block")
+    slices = -(-channels // cs)
+    groups = max(1, sms // slices)
+    return FwdPlan(cs, groups, slices * groups, smem)
+
+
+def _fwd_scratch_words(n: int, output_size: int, sampling_ratio: int,
+                       max_adaptive_grid: int) -> int:
+    """32-bit words of the forward kernel's tap tables: per ROI, axis and
+    bin, a count and up to two taps per sample, each a (cell, weight)
+    pair."""
+    grid = sampling_ratio if sampling_ratio > 0 else max_adaptive_grid
+    return n * 2 * output_size * (2 * grid + 1) * 2
 
 
 class BwdPlan(NamedTuple):
@@ -269,6 +327,11 @@ def _device_limits(device: torch.device):
     return props.shared_memory_per_block_optin, props.multi_processor_count
 
 
+def fwd_launch_plan(vh: int, vw: int, channels: int, dtype: torch.dtype, device) -> FwdPlan:
+    """:func:`_fwd_plan` for the CUDA device the forward kernel runs on."""
+    return _fwd_plan(vh, vw, channels, _ELEM_BYTES[dtype], *_device_limits(torch.device(device)))
+
+
 def bwd_launch_plan(height: int, width: int, channels: int, device,
                     output_size: int = 7) -> BwdPlan:
     """:func:`_bwd_plan` for the CUDA device the backward kernel runs on."""
@@ -283,10 +346,16 @@ def _roi_align_cuda(features, rois, output_size, spatial_scale,
     height, width, channels = features.shape
     vh, vw = _check_cuda_args("roi_align_fwd", features, rois, sampling_ratio,
                               max_adaptive_grid, height, width, valid_hw)
+    plan = fwd_launch_plan(vh, vw, channels, features.dtype, features.device)
+    scratch = torch.empty(_fwd_scratch_words(rois.shape[0], output_size, sampling_ratio,
+                                             max_adaptive_grid),
+                          dtype=torch.int32, device=features.device)
+    # every element is written by the kernel, once, in the features' dtype
     out = torch.empty((rois.shape[0], output_size, output_size, channels),
                       dtype=features.dtype, device=features.device)
     _launch("roi_align_fwd", features, rois, out, height, width, channels, vh, vw,
-            output_size, spatial_scale, sampling_ratio, max_adaptive_grid)
+            output_size, spatial_scale, sampling_ratio, max_adaptive_grid,
+            extra=(scratch.data_ptr(), plan.cs, plan.groups, plan.smem))
     roi_align.kernel_launches += 1
     return out
 

@@ -244,31 +244,107 @@ def test_bwd_plan_refuses_what_the_kernel_cannot_hold():
         ra._bwd_plan(60, 76, 1024, 48 * 1024, H100_SMS)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("vhw_c", [(23, 30, 1024), (57, 75, 1024), (75, 75, 1024),
+                                   (75, 100, 1024), (113, 150, 512), (29, 38, 2048),
+                                   (57, 75, 72), (23, 30, 5)],
+                         ids=lambda v: "x".join(map(str, v)))
+def test_fwd_plan_covers_the_map_once(vhw_c, dtype):
+    """The forward kernel's plan at the eval passes' valid extents (480,
+    1200, the square 1200 map, the padded 76x100 bucket), at strides 8 and
+    32, and at ragged channel counts: its slice of the valid map fits the
+    card's shared memory, its slices cover every channel exactly once, its
+    groups cover every ROI exactly once, and its blocks fill the card in
+    one wave where the slices leave room."""
+    vh, vw, channels = vhw_c
+    elem = ra._ELEM_BYTES[dtype]
+    plan = ra._fwd_plan(vh, vw, channels, elem, H100_SMEM_OPTIN, H100_SMS)
+    assert plan.smem == vh * vw * plan.cs * elem <= H100_SMEM_OPTIN
+    assert plan.cs & (plan.cs - 1) == 0
+    assert ra.FWD_MIN_CELL_BYTES <= plan.cs * elem <= ra.FWD_MAX_CELL_BYTES
+    slices = -(-channels // plan.cs)
+    cover = np.zeros(slices * plan.cs, int)
+    for start in range(0, channels, plan.cs):
+        cover[start:start + plan.cs] += 1
+    assert (cover[:channels] == 1).all() and slices * plan.cs - channels < plan.cs
+    n = 2047
+    rois = np.zeros(n, int)
+    for group in range(plan.groups):  # the kernel's ROIs of a group
+        rois[group:n:plan.groups] += 1
+    assert (rois == 1).all()
+    assert plan.blocks == slices * plan.groups
+    assert plan.groups == 1 or plan.blocks <= H100_SMS < plan.blocks + slices
+
+
+def test_fwd_plan_widest_slice_and_refusal():
+    """The eval map of the 1200 pass takes 16 bf16 channels (32 bytes) a
+    cell and the stride-8 map 4 (8 bytes); a map whose narrowest slice (8
+    bytes a cell) does not fit is refused."""
+    bf16 = ra._ELEM_BYTES[torch.bfloat16]
+    assert ra._fwd_plan(57, 75, 1024, bf16, H100_SMEM_OPTIN, H100_SMS).cs == 16
+    assert ra._fwd_plan(75, 75, 1024, bf16, H100_SMEM_OPTIN, H100_SMS).cs == 16
+    assert ra._fwd_plan(113, 150, 512, bf16, H100_SMEM_OPTIN, H100_SMS).cs == 4
+    assert ra._fwd_plan(23, 30, 1024, bf16, H100_SMEM_OPTIN, H100_SMS).cs == 64
+    with pytest.raises(ValueError, match="shared memory"):
+        ra._fwd_plan(400, 400, 8, 4, H100_SMEM_OPTIN, H100_SMS)
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
 
 
+def _map_case(rng, shape, valid, scale, n=64):
+    """A zero-padded bucket of the given shape and valid extent with n ROIs
+    up to the whole valid map: the first over all of it, the last of zero
+    area (a padding row)."""
+    feat = np.zeros(shape, np.float32)
+    feat[: valid[0], : valid[1]] = rng.randn(valid[0], valid[1], shape[2])
+    img_h, img_w = valid[0] / scale, valid[1] / scale
+    x1, y1 = rng.uniform(0, img_w * 0.9, n), rng.uniform(0, img_h * 0.9, n)
+    rois = np.stack([x1, y1, np.minimum(x1 + rng.uniform(8, img_w, n), img_w - 1),
+                     np.minimum(y1 + rng.uniform(8, img_h, n), img_h - 1)], -1)
+    rois[0] = [0.0, 0.0, img_w - 1.0, img_h - 1.0]
+    rois[-1] = 0.0
+    return feat, rois.astype(np.float32), valid
+
+
+# (features, valid extent, scale) of the forward kernel's cases
+_FWD_CASES = {
+    "vec16B": lambda rng: (*_case(rng, 1 / 16, c=72), 1 / 16),
+    "scalar": lambda rng: (*_case(rng, 1 / 16, c=5), 1 / 16),
+    # the square image's 1200 pass: a 75x75 valid map in a 76x76 bucket
+    "square75x75": lambda rng: (*_map_case(rng, (76, 76, 1024), (75, 75), 1 / 16), 1 / 16),
+    # stride 8: the narrow slice (8 bytes a cell in bf16)
+    "stride8": lambda rng: (*_map_case(rng, (120, 152, 512), (113, 150), 1 / 8), 1 / 8),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels", [72, 5], ids=["vec16B", "scalar"])
+@pytest.mark.parametrize("case", list(_FWD_CASES))
 @pytest.mark.parametrize("sampling_ratio", [0, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_kernel_matches_plain_on_cuda(rng, dtype, sampling_ratio, channels):
+def test_kernel_matches_plain_on_cuda(rng, dtype, sampling_ratio, case):
     """The kernel against the plain version on the same CUDA inputs: float32
-    within 1e-5 (sums in another order), bf16 within one output rounding.
-    72 channels take the 16-byte vector loads, 5 the scalar ones."""
+    within 1e-5 (sums in another order), bf16 within one output rounding;
+    two calls give the same bits. 72 channels take the 16-byte copies and
+    stores, 5 the element-wise ones; the square 1200 map and the stride-8
+    map take the widest valid map of the eval path and the narrowest slice."""
     _cuda_or_skip()
-    feat, rois, valid = _case(rng, 1 / 16, c=channels)
+    feat, rois, valid, scale = _FWD_CASES[case](rng)
     feat = torch.from_numpy(feat).cuda().to(dtype)
     rois = torch.from_numpy(rois).cuda()
+    args = (feat, rois, 7, scale, sampling_ratio, 4, valid)
     before = roi_align.kernel_launches
     with torch.no_grad():
-        got = roi_align(feat, rois, 7, 1 / 16, sampling_ratio, 4, valid)
-        want = roi_align_plain(feat, rois, 7, 1 / 16, sampling_ratio, 4, valid)
-    assert roi_align.kernel_launches == before + 1
+        got = roi_align(*args)
+        again = roi_align(*args)
+        want = roi_align_plain(*args)
+    assert roi_align.kernel_launches == before + 2
     assert got.dtype == dtype and got.shape == want.shape
     atol = 1e-5 if dtype == torch.float32 else 1e-2 * feat.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
