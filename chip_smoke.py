@@ -16,7 +16,11 @@ of which fails the run:
                    (scales 480 and 1200, N 2048 and 4096) and at strides
                    8 and 32; each
                    twice, to the same bits, with its plan, and the kernel's
-                   time summed over an eval image's 10 passes
+                   time summed over an eval image's 10 passes; then the
+                   batched forward (one launch for a stack of images, each
+                   with its own valid extent): 8 bf16 images and 3 f32 at
+                   the 1200 pass's map, against the plain version, twice to
+                   the same bits, and each image bit-equal to its own call
   roi_align_bwd    the backward kernel against its plain version on the
                    card, at the train path's shapes (scales 480 and 1200,
                    N 2048 / 2047 / 4096 with zero-area padding ROIs,
@@ -31,6 +35,12 @@ of which fails the run:
                    seeded random weights over 4 synthetic 375x500 images
                    with 2000 proposals each: 10 TTA passes per image, NMS,
                    COCO box eval
+  eval_batched     the float32 model's BatchedEvaluator against its
+                   Evaluator on the card (two images of two sizes in one
+                   stack); then run_inference at the shipped EVAL_BATCH 8
+                   over 16 synthetic 375x500 images (two stacks, 20
+                   forward launches), and at EVAL_BATCH 1 over the same
+                   images, s/image of both
   train_reference  the full-width model in float32, TF32 off, anti-noise
                    off: one microbatch (a 128x160 image, 64 proposals) on
                    the card (both kernels) against the CPU (plain
@@ -44,11 +54,17 @@ of which fails the run:
                    and a timed step at scale 1200 with 4000 padded to
                    4096; then a checkpoint save / load / one more step
                    against the uninterrupted trainer
+  train_cli        the training CLI (cim_tpu_torch.tools.train main()) at
+                   full width on an on-disk set of 8 375x500 JPEGs with
+                   2000 proposals read by TrainLoader: 6 steps at
+                   iter_size 4, snapshots every 3; then a run resumed from
+                   the step-3 snapshot against steps 4-6 of the first
 
 With --profile, one more training step (scale 1200, 2048 proposals) runs
 under torch.profiler and its device time by operator, by phase
 (cim.forward, cim.losses, cim.mining, cim.backward, cim.optimizer) and of
-each of the port's kernels is printed.
+each of the port's kernels is printed, and the CLI's sixth step is traced
+(its device busy share).
 
 The card's nvidia-smi name and power limit come on the [device] line and
 again on a line of their own; the line before the last is a JSON object
@@ -75,10 +91,11 @@ from cim_tpu_torch.data.synthetic import (
     make_microbatch,
     make_train_batch,
     write_synthetic_coco_dataset,
+    write_synthetic_train_dataset,
 )
 from cim_tpu_torch.data.transforms import scale_for_target
 from cim_tpu_torch.engine.checkpoint import load_ckpt, save_ckpt
-from cim_tpu_torch.engine.test import Evaluator
+from cim_tpu_torch.engine.test import BatchedEvaluator, Evaluator
 from cim_tpu_torch.engine.test_engine import get_roidb_and_dataset, run_inference
 from cim_tpu_torch.engine.train import Trainer, losses_from_pseudo_labels, mine_pseudo_labels
 from cim_tpu_torch.models.builder import build_model, frozen_paths_for, is_frozen
@@ -91,6 +108,7 @@ from cim_tpu_torch.ops.roi_align import (
     roi_align_backward_plain,
     roi_align_plain,
 )
+from cim_tpu_torch.tools import train as train_cli
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -144,6 +162,19 @@ ROI_ALIGN_CASES = [
     ("train480_bf16", (24, 32, 1024), (24, 32), 1 / 16, 2048, torch.bfloat16, 0, 4),
     ("train1200_bf16_n4096", (60, 76, 1024), (60, 76), 1 / 16, 4096, torch.bfloat16, 0, 4),
 ]
+# the batched forward's cases (cross-image eval stacks at the 1200 pass's
+# 60x76x1024 map): the images of a stack share a bucket, not a size, so
+# each has its own valid extent: (name, extents, dtype)
+ROI_ALIGN_BATCHED_CASES = [
+    ("eval_b8_bf16", [(57, 75), (57, 68), (52, 75), (57, 75), (48, 75), (57, 60), (55, 73),
+                      (57, 75)], torch.bfloat16),
+    ("eval_b3_f32", [(57, 75), (50, 70), (57, 64)], torch.float32),
+]
+EVAL_BATCH = 8  # the shipped configs' TPU.EVAL_BATCH
+N_BATCHED_IMAGES = 16  # two full stacks
+CLI_IMAGES = 8  # the on-disk training set of the train-CLI phase
+CLI_STEPS = 6
+CLI_SNAPSHOT = 3  # the step of the snapshot the resumed run starts from
 TRAIN_STEPS = 3  # timed steps per 2048-proposal bucket
 TRAIN_SCALES = (480, 1200)
 TRAIN_N_VALID = (2000, 4000)  # a typical COB count (bucket 2048), and bench.py's cap run (4096)
@@ -275,7 +306,66 @@ def phase_roi_align():
     log(f"[roi_align] per eval image (10 passes: each scale with and without hflip, "
         f"bf16, N 2048, cap 4): {main_case['eval_image_ms']:.4f} ms of kernel time "
         f"({', '.join(f'{t}: 2 x {ms:.4f}' for t, ms in passes.items())})")
+    main_case["batched"] = phase_roi_align_batched(rng)
     return main_case
+
+
+def phase_roi_align_batched(rng):
+    """The batched forward (one launch for a stack of images, each with its
+    own valid extent) against its plain version, twice to the same bits,
+    and each image bit-equal to a call of its own; timed beside the sum of
+    those single calls. Returns the bf16 stack of 8 (the eval path's) for
+    the kernels line."""
+    shape, scale, n, cap = EVAL_FEAT, 1 / 16, 2048, 4
+    out_case = None
+    with torch.no_grad():
+        for name, extents, dtype in ROI_ALIGN_BATCHED_CASES:
+            cases = [_roi_case(rng, shape, hw, scale, n, dtype) for hw in extents]
+            feat = torch.stack([f for f, _ in cases]).contiguous()
+            rois = torch.stack([r for _, r in cases]).contiguous()
+            args = (feat, rois, 7, scale, 0, cap, extents)
+            batch = len(extents)
+            before = roi_align.kernel_launches
+            out = roi_align(*args)
+            again = roi_align(*args)
+            check(roi_align.kernel_launches == before + 2, f"{name}: one launch a call")
+            single = [roi_align(feat[b], rois[b], 7, scale, 0, cap, hw)
+                      for b, hw in enumerate(extents)]
+            torch.cuda.synchronize()
+            ref = roi_align_plain(*args)
+            check(out.shape == ref.shape == (batch, n, 7, 7, shape[2]) and out.dtype == dtype,
+                  f"{name}: output shape and dtype")
+            check(torch.equal(out, again), f"{name}: two runs give the same bits")
+            for b in range(batch):
+                check(torch.equal(out[b], single[b]),
+                      f"{name}: image {b} has the bits of a call of its own")
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = F32_ATOL if dtype == torch.float32 else BF16_REL * feat.float().abs().max().item()
+            k_ms = cuda_ms(lambda: roi_align(*args), 20)
+            singles_ms = sum(cuda_ms(lambda b=b: roi_align(feat[b], rois[b], 7, scale, 0, cap,
+                                                           extents[b]), 20)
+                             for b in range(batch))
+            p_ms = cuda_ms(lambda: roi_align_plain(*args), 2)
+            cells = sum(tap_cells(rois[b], shape[1], hw, scale, 0, cap)
+                        for b, hw in enumerate(extents))
+            n_bytes = sum(vh * vw for vh, vw in extents) * shape[2] * feat.element_size() \
+                + rois.numel() * 4 + out.numel() * out.element_size()
+            b_ms, b_by = bound(n_bytes, 2.0 * shape[2] * cells, dtype)
+            plan = ra.fwd_launch_plan(*max(extents, key=lambda hw: hw[0] * hw[1]), shape[2],
+                                      dtype, rois.device, batch)
+            log(f"[roi_align] {name}: {batch} images of {shape} valid {extents} N {n} "
+                f"{str(dtype)[6:]} cap {cap}, plan {plan._asdict()}: max_abs_err {err:.3g} "
+                f"(bound {tol:.3g}), two runs the same bits, each image the bits of its own call, "
+                f"kernel {k_ms:.4f} ms (its {batch} single calls {singles_ms:.4f} ms), "
+                f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({cells} tap cells, "
+                f"{n_bytes / 1e6:.1f} MB)")
+            check(err <= tol, f"{name}: kernel agrees with the plain version")
+            if out_case is None:
+                out_case = {"name": name, "batch": batch, "max_abs_err": err, "ms": k_ms,
+                            "single_calls_ms": singles_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": None, "plan": plan._asdict()}
+            del feat, rois, out, again, ref, single
+    return out_case
 
 
 def phase_roi_align_bwd():
@@ -483,6 +573,166 @@ def phase_main_path(work_dir, card):
     log(f"[main] COCO box eval on random weights: AP {results['AP']:.4f}, "
         f"AP50 {results['AP50']:.4f}")
     return launches, evaluator, roidb
+
+
+class _TimedBatchedEvaluator(BatchedEvaluator):
+    """BatchedEvaluator that records the time and the images of each
+    im_detect_all_many call: host clock around the whole call, each image's
+    preparation on the host included, as _TimedEvaluator times an image."""
+
+    def __init__(self, cfg, model):
+        super().__init__(cfg, model, device="cuda")
+        self.seconds = []  # (seconds, images) a call
+
+    def im_detect_all_many(self, items, window=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = super().im_detect_all_many(items, window)
+        torch.cuda.synchronize()
+        self.seconds.append((time.perf_counter() - t0, len(items)))
+        return out
+
+    def per_image(self):
+        """Seconds an image over the calls recorded."""
+        return sum(s for s, _ in self.seconds) / sum(n for _, n in self.seconds)
+
+
+def phase_batched_reference(cfg, model):
+    """The full-width model in float32, TF32 off, on the card:
+    BatchedEvaluator against Evaluator on two images of different sizes in
+    one stack (hflip + identity), rtol 2e-3, atol 2e-5."""
+    cfg = clone_cfg(cfg)
+    cfg.TPU.PRECISION = "f32"
+    cfg.TEST.SCALE = 160
+    cfg.TEST.BBOX_AUG.SCALES = ()
+    m = build_model(cfg, device="cuda")
+    m.load_state_dict({k: v.detach() for k, v in model.state_dict().items()})
+    rng = np.random.RandomState(SEED + 5)
+    items = []
+    for h, w in ((120, 160), (112, 150)):  # one bucket (128x256), one ratio bucket (0.75)
+        x1, y1 = rng.uniform(0, w - 20, 64), rng.uniform(0, h - 20, 64)
+        boxes = np.stack([x1, y1, np.minimum(x1 + rng.uniform(8, 90, 64), w - 1),
+                          np.minimum(y1 + rng.uniform(8, 70, 64), h - 1)], -1).astype(np.float32)
+        items.append((rng.randint(0, 256, (h, w, 3)).astype(np.uint8), boxes,
+                      (rng.rand(64, 7, 7) > 0.4).astype(np.float32)))
+    got = BatchedEvaluator(cfg, m, 2, device="cuda").im_detect_all_many(items)
+    sequential = Evaluator(cfg, m, device="cuda")
+    errs = []
+    for (scores, _), item in zip(got, items):
+        want, _ = sequential.im_detect_all(*item)
+        errs.append(float(np.abs(scores - want).max()))
+        np.testing.assert_allclose(scores, want, rtol=2e-3, atol=2e-5)
+    log(f"[eval_batched] float32 full-width model, a stack of 2 images (120x160, 112x150), "
+        f"2 TTA passes, 64 proposals: BatchedEvaluator vs Evaluator on the card max_abs_err "
+        f"{max(errs):.3g}")
+    del m
+
+
+def phase_eval_batched(work_dir, card, model, profile=False):
+    """run_inference at the shipped EVAL_BATCH over N_BATCHED_IMAGES
+    images (two full stacks), between two runs at EVAL_BATCH 1 over the
+    same images; with ``profile``, one stack under torch.profiler. Returns
+    the forward kernel's launches of the batched run."""
+    data_dir = os.path.join(work_dir, "batched")
+    os.makedirs(data_dir)
+    ann, props = write_synthetic_coco_dataset(
+        data_dir, N_BATCHED_IMAGES, N_PROPS, np.random.RandomState(SEED + 5),
+        image_hw=IMAGE_HW, write_jpegs=False,
+    )
+    catalog.register_dataset("chip_smoke_batched", {catalog.IM_DIR: data_dir, catalog.ANN_FN: ann})
+    cfg = _smoke_cfg(data_dir, props)
+    cfg.TEST.DATASETS = ("chip_smoke_batched",)
+    cfg.TPU.EVAL_BATCH = EVAL_BATCH
+    phase_batched_reference(cfg, model)
+    passes = Evaluator.tta_pass_list(cfg)
+    roidb = get_roidb_and_dataset(cfg, cfg.TEST.DATASETS[0], props)[0]
+
+    # the same images one at a time, before and after the batched run
+    cfg1 = clone_cfg(cfg)
+    cfg1.TPU.EVAL_BATCH = 1
+    sequential = _TimedEvaluator(cfg1, model)
+    sequential.im_detect_all(_image_loader(roidb[0]), roidb[0]["boxes"], roidb[0]["masks"])
+    sequential.seconds.pop()
+
+    def run_sequential(tag):
+        sequential.seconds.clear()
+        t0 = time.perf_counter()
+        _, _, scores = run_inference(cfg1, model, os.path.join(data_dir, "out1" + tag),
+                                     image_loader=_image_loader, evaluator=sequential)
+        return scores, (time.perf_counter() - t0) / N_BATCHED_IMAGES, list(sequential.seconds)
+
+    scores_1, e2e_1, secs_1 = run_sequential("a")
+
+    batched = _TimedBatchedEvaluator(cfg, model)
+    # one warm stack outside the counted run (cuDNN at batch 8, allocator)
+    batched.im_detect_all_many([(_image_loader(e), e["boxes"], e["masks"])
+                                for e in roidb[:EVAL_BATCH]])
+    warm_s = batched.seconds.pop()[0]
+    torch.cuda.reset_peak_memory_stats()
+    roi_align.kernel_launches = 0
+    roi_align_backward.kernel_launches = 0
+    t0 = time.perf_counter()
+    results, all_boxes, all_scores = run_inference(
+        cfg, model, os.path.join(data_dir, "out"), image_loader=_image_loader, evaluator=batched)
+    e2e_s = time.perf_counter() - t0
+    launches = roi_align.kernel_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stacks = N_BATCHED_IMAGES // EVAL_BATCH
+    check(launches == len(passes) * stacks,
+          f"{launches} roi_align kernel launches for {stacks} stacks x {len(passes)} passes")
+    check(roi_align_backward.kernel_launches == 0, "eval launches no backward kernel")
+    check(len(all_scores) == N_BATCHED_IMAGES, "one score record per image")
+    for name, rec in all_scores.items():
+        s = rec["scores"]
+        check(s.shape == (N_PROPS, cfg.MODEL.NUM_CLASSES), f"{name}: scores shape {s.shape}")
+        check(np.isfinite(s).all() and s.min() >= 0.0 and s.max() <= 1.0,
+              f"{name}: scores finite in [0, 1]")
+        check(s.std() > 0, f"{name}: scores not constant")
+    check(np.isfinite(results["AP"]) and np.isfinite(results["AP50"]), "finite COCO AP")
+    per_image_b = batched.per_image()
+    _, e2e_1b, secs_1b = run_sequential("b")
+    diff = max(float(np.abs(all_scores[k]["scores"] - scores_1[k]["scores"]).max())
+               for k in scores_1)
+    log(f"[eval_batched] {card}: EVAL_BATCH {EVAL_BATCH}, {N_BATCHED_IMAGES} images: fused TTA "
+        f"{per_image_b:.4f} s/image (im_detect_all_many calls "
+        f"{[(round(s, 4), n) for s, n in batched.seconds]} as (s, images); "
+        f"warm-up stack {warm_s:.3f} s), run_inference end to end "
+        f"{e2e_s / N_BATCHED_IMAGES:.4f} s/image, peak device memory {peak_gb:.2f} GB, "
+        f"roi_align kernel launches {launches}")
+    # both timed over the same images and the same work: each image's
+    # preparation on the host, its TTA passes, the scores' copy to the host
+    log(f"[eval_batched] {card}: evaluator s/image (the evaluator's time over the "
+        f"{N_BATCHED_IMAGES} images, divided by {N_BATCHED_IMAGES}), in the order run: "
+        f"EVAL_BATCH 1 {np.mean(secs_1):.4f}, EVAL_BATCH {EVAL_BATCH} {per_image_b:.4f}, "
+        f"EVAL_BATCH 1 {np.mean(secs_1b):.4f} (EVAL_BATCH 1's images "
+        f"{[round(s, 4) for s in secs_1]} and {[round(s, 4) for s in secs_1b]}); "
+        f"run_inference end to end {e2e_1:.4f}, {e2e_s / N_BATCHED_IMAGES:.4f}, "
+        f"{e2e_1b:.4f} s/image; the bf16 scores of EVAL_BATCH {EVAL_BATCH} and 1 differ by "
+        f"at most {diff:.3g}")
+    if profile:
+        phase_profile_batched(batched, roidb[:EVAL_BATCH])
+    return launches
+
+
+def phase_profile_batched(batched, entries):
+    """Device time of one stack's TTA by operator, against the unprofiled
+    run's time an image (the device's busy share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    image_ms = 1e3 * batched.per_image()
+    items = [(_image_loader(e), e["boxes"], e["masks"]) for e in entries]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        batched.im_detect_all_many(items)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    log(f"[profile] one stack of {len(items)} images: device busy {device_ms:.1f} ms, "
+        f"{device_ms / len(items):.1f} ms an image of the unprofiled run's {image_ms:.1f} ms "
+        f"({100 * device_ms / len(items) / image_ms:.1f} %)")
+    _log_port_kernels(events, device_ms)
+    log(events.table(sort_by="self_device_time_total", row_limit=20, max_name_column_width=70))
 
 
 def _log_port_kernels(events, device_ms=None):
@@ -732,6 +982,97 @@ def phase_train_profile(trainer, batch, timed):
     log(events.table(sort_by="self_device_time_total", row_limit=40, max_name_column_width=70))
 
 
+def _iou_on_card(masks):
+    """(iou, asy_iou) of (n, h, w) bool masks: data.synthetic.mask_matrices'
+    arithmetic as a float32 product on the card (TF32 off: exact counts)."""
+    flat = torch.from_numpy(masks.reshape(masks.shape[0], -1)).cuda().float()
+    inter = flat @ flat.T
+    area = flat.sum(-1)
+    union = area[:, None] + area[None, :] - inter
+    iou = inter / union.clamp(min=1.0)
+    asy = inter / area[None, :].clamp(min=1.0)
+    return iou.cpu().numpy(), asy.cpu().numpy()
+
+
+def phase_train_cli(work_dir, card, profile=False):
+    """The training CLI (python -m cim_tpu_torch.tools.train) through its
+    main(), at full width on the real data path: an on-disk set of
+    CLI_IMAGES 375x500 JPEGs with N_PROPS proposals, their IoU pickles and
+    label assignment, read by TrainLoader. CLI_STEPS steps at iter_size 4
+    with a snapshot every CLI_SNAPSHOT steps, then a run resumed from the
+    snapshot at CLI_SNAPSHOT against the uninterrupted run's steps after it
+    (losses within rtol 1e-5). Returns the kernels' launches of the first
+    run."""
+    t0 = time.perf_counter()
+    data_dir = os.path.join(work_dir, "train_cli")
+    paths = write_synthetic_train_dataset(data_dir, CLI_IMAGES, N_PROPS,
+                                          np.random.RandomState(SEED + 6), image_hw=IMAGE_HW,
+                                          iou_fn=_iou_on_card)
+    catalog.register_dataset("chip_smoke_train", {catalog.IM_DIR: paths["image_dir"],
+                                                  catalog.ANN_FN: paths["ann"]})
+    write_s = time.perf_counter() - t0
+    accum = 4
+    flags = ["--cfg", os.path.join(REPO, "configs", "resnet50_voc.yaml"), "--device", "cuda",
+             "--iter_size", str(accum), "--disp_interval", "1", "--seed", str(SEED), "--set",
+             "TPU.PALLAS_ROI_ALIGN", "True", "TPU.PRECISION", "bf16_compute",
+             "TRAIN.DATASETS", "('chip_smoke_train',)",
+             "TRAIN.PROPOSAL_FILES", f"('{paths['props']}',)",
+             "TRAIN.REFINE_FILES", f"('{paths['label_assign']}',)",
+             "iou_dir", paths["iou_dir"], "asy_iou_dir", paths["asy_iou_dir"],
+             "DATA_DIR", data_dir, "TRAIN.SNAPSHOT_ITERS", str(CLI_SNAPSHOT * accum)]
+    out = os.path.join(work_dir, "train_cli_out")
+    traced = (CLI_SNAPSHOT + 1, CLI_SNAPSHOT + 2)  # the fifth step: it writes no snapshot
+    roi_align.kernel_launches = 0
+    roi_align_backward.kernel_launches = 0
+    run = train_cli.main(flags + ["--max_iter", str(CLI_STEPS), "--output_dir", out]
+                         + (["--profile_dir", os.path.join(work_dir, "profile")] if profile else []),
+                         profile_steps=traced)
+    fwd, bwd = roi_align.kernel_launches, roi_align_backward.kernel_launches
+    check(run["step"] == CLI_STEPS and len(run["metrics"]) == CLI_STEPS,
+          f"the CLI ran {run['step']} steps and logged {len(run['metrics'])}")
+    check(fwd == bwd == CLI_STEPS * accum,
+          f"{fwd} forward / {bwd} backward kernel launches for {CLI_STEPS} steps x {accum}")
+    for step, m in run["metrics"]:
+        check(all(np.isfinite(v) for v in m.values()), f"CLI step {step}: finite metrics {m}")
+    snapshot = os.path.join(out, "ckpt", f"model_step{CLI_SNAPSHOT}.pth")
+    check(os.path.exists(snapshot), f"snapshot {snapshot}")
+    # after the first step (warm-up), without the steps that wrote a
+    # snapshot and those the profiler ran in or stopped after
+    traced = range(traced[0], traced[1] + 1) if profile else ()
+    steady = [i for i in range(1, CLI_STEPS) if i + 1 not in run["snapshots"] and i not in traced]
+    loop = [run["loop_s"][i] for i in steady]
+    wait = [run["loader_wait_s"][i] for i in steady]
+    log(f"[train_cli] {card}: {CLI_STEPS} steps of {accum} images through the CLI over an "
+        f"on-disk set of {CLI_IMAGES} images (written in {write_s:.1f} s): s/step median "
+        f"{np.median(loop):.4f} over steps {[i + 1 for i in steady]} (each step "
+        f"{[round(s, 4) for s in run['loop_s']]}; the first warms up, steps {run['snapshots']} "
+        f"write a 2 GB snapshot{', steps 5-6 hold the profiler' if profile else ''}), loader wait {100 * sum(wait) / sum(loop):.1f} % of those "
+        f"steps' loop (each step {[round(s, 4) for s in run['loader_wait_s']]}), loader build "
+        f"{np.median(run['loader_build_s']):.4f} s a batch of {accum} on the host (median of "
+        f"{len(run['loader_build_s'])}: decode, resize, IoU pickles, pinning); launches forward "
+        f"{fwd}, backward {bwd}; losses {[round(m['total_loss'], 4) for _, m in run['metrics']]}")
+    if run["profile"]:
+        p = run["profile"]
+        log(f"[train_cli] profile of {p['steps']} step(s): device busy {p['device_busy_ms']:.1f} "
+            f"of {p['wall_ms']:.1f} ms, idle share {100 * p['idle_share']:.1f} %")
+
+    resumed = train_cli.main(flags + ["--max_iter", str(CLI_STEPS), "--output_dir",
+                                      out + "_resumed", "--resume", "--load_ckpt", snapshot,
+                                      "--no_save"])
+    check([s for s, _ in resumed["metrics"]] == list(range(CLI_SNAPSHOT, CLI_STEPS)),
+          f"the resumed run's steps {[s for s, _ in resumed['metrics']]}")
+    worst = 0.0
+    for (step, got), (_, want) in zip(resumed["metrics"], run["metrics"][CLI_SNAPSHOT:]):
+        for k, v in want.items():
+            worst = max(worst, abs(got[k] - v) / max(abs(v), 1e-30))
+            check(abs(got[k] - v) <= 1e-6 + 1e-5 * abs(v),
+                  f"resumed CLI step {step}: {k} {got[k]} vs uninterrupted {v}")
+    log(f"[train_cli] resumed from {os.path.basename(snapshot)}: steps {CLI_SNAPSHOT}-"
+        f"{CLI_STEPS - 1} give the uninterrupted run's metrics (worst relative difference "
+        f"{worst:.3g}); total_loss {[round(m['total_loss'], 6) for _, m in resumed['metrics']]}")
+    return fwd, bwd
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -753,9 +1094,12 @@ def main():
         eval_launches, evaluator, roidb = phase_main_path(work_dir, card)
         if args.profile:
             phase_profile(evaluator, roidb[1])
+        batched_launches = phase_eval_batched(work_dir, card, evaluator.model,
+                                              profile=args.profile)
         del evaluator
         phase_train_reference()
         train_fwd, train_bwd = phase_train(card, work_dir, profile=args.profile)
+        cli_fwd, cli_bwd = phase_train_cli(work_dir, card, profile=args.profile)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -766,7 +1110,8 @@ def main():
             "source": "cim_tpu_torch/csrc/roi_align_fwd.cu",
             "replaces": "cim_tpu/ops/pallas/roi_align_kernel.py:151",
             "launches": train_fwd,
-            "launches_by_path": {"eval": eval_launches, "train": train_fwd},
+            "launches_by_path": {"eval": eval_launches, "eval_batched": batched_launches,
+                                 "train": train_fwd, "train_cli": cli_fwd},
             **fwd_kernel,
         },
         {
@@ -775,7 +1120,8 @@ def main():
             "source": "cim_tpu_torch/csrc/roi_align_bwd.cu",
             "replaces": "cim_tpu/ops/pallas/roi_align_kernel.py:169",
             "launches": train_bwd,
-            "launches_by_path": {"eval": 0, "train": train_bwd},
+            "launches_by_path": {"eval": 0, "eval_batched": 0, "train": train_bwd,
+                                 "train_cli": cli_bwd},
             **bwd_kernel,
         },
     ]}))

@@ -242,7 +242,7 @@ def get_default_cfg() -> AttrDict:
     c.TPU.SPACE_TO_DEPTH_STEM = False
     c.TPU.GRAD_ACCUM = 4  # reference iter_size (tools/train.py:84-86)
     # eval: TTA passes of EVAL_BATCH images stacked per forward
-    # (1 = sequential reference-style loop, the only value the port takes)
+    # (engine.test.BatchedEvaluator; 1 = sequential reference-style loop)
     c.TPU.EVAL_BATCH = 8
     # experimental in cim_tpu: dynamic w8a8 (int8) for the MaskFuse conv +
     # fc1 at eval time. Default off.
@@ -253,10 +253,9 @@ def get_default_cfg() -> AttrDict:
     # fused TTA: ship the ORIGINAL image once and derive all TTA passes
     # on-device in one compiled program (engine.test._fused_forward)
     c.TPU.FUSED_TTA = True
-    # in-process multi-device eval: partition the stacked EVAL_BATCH axis
-    # over a Mesh("dp") of this many local devices (-1 = all; 1 = off).
-    # Replaces the reference's DataParallel-wrapped test model
-    # (test_engine.py:354); composes with --range process sharding.
+    # in-process multi-device eval in cim_tpu: the stacked EVAL_BATCH axis
+    # over this many local devices (-1 = all; 1 = off). The port runs one
+    # card: with one visible it warns and uses it, with more it raises.
     c.TPU.EVAL_DEVICES = 1
 
     return c

@@ -33,6 +33,16 @@
 // differs from the plain version's by f32 rounding only, and is the same
 // from run to run, bit for bit.
 //
+// A batch of B images (the TPU path's vmap over _forward, evaluation's
+// cross-image stacks) is a grid dimension: features (B, H, W, C), rois
+// (B, N, 4), one valid extent per image, passed by value in the kernels'
+// parameters (Extents), and one launch of each kernel whatever B is. A
+// slice block stages the valid map of its own image; the plan is that of
+// the largest map of the stack. A bin's sum runs over the same taps in the
+// same order whichever block computes it, and a warp's extra taps of
+// weight zero leave an f32 sum that starts at +0 unchanged, so each image
+// gets the bits of a call of its own.
+//
 // What bounds it on this card (H100 80GB HBM3, 700 W; chip_smoke.py and
 // scripts/roi_align_fwd_bench.py): at the eval path's 1200-pass shape,
 // 60x76x1024 bf16 (57x75 valid), N 2048, cap 4, it takes 0.35 ms of device
@@ -69,10 +79,17 @@ using roi_align::kMaxGrid;
 // the loads from shared memory
 constexpr int kThreads = 1024;
 constexpr int kTapRegs = 8;  // column taps a lane holds in registers at a time
+constexpr int kMaxBatch = 32;  // images of a call (the wrapper cuts larger stacks)
+
+// the valid extent (vh, vw) of each image of a call, as a kernel parameter
+struct Extents {
+  int2 hw[kMaxBatch];
+};
 
 // ---------------------------------------------------------------- taps
 
-// One block per ROI, a thread per (axis, bin). The table of ROI n, axis a
+// One block per ROI, grid.y the image, a thread per (axis, bin), the valid
+// extent that of the ROI's image. The table of ROI n of the batch, axis a
 // (0 rows, 1 columns) and bin p is the k + 1 entries at
 // taps + ((n * 2 + a) * r + p) * (k + 1): entry 0 holds the count of taps,
 // entries 1.. each tap as the offset, in bytes, of its row
@@ -81,10 +98,11 @@ constexpr int kTapRegs = 8;  // column taps a lane holds in registers at a time
 // are summed in sample order; taps of zero weight are left out; the rows'
 // weights are divided by gh * gw.
 __global__ void fwd_taps_kernel(const float* __restrict__ rois,
-                                int2* __restrict__ taps, int vh, int vw,
-                                int r, float scale, int sampling_ratio,
-                                int cap, int k, int cell) {
-  const int n = blockIdx.x;
+                                int2* __restrict__ taps, Extents ext, int r,
+                                float scale, int sampling_ratio, int cap,
+                                int k, int cell) {
+  const int n = blockIdx.y * gridDim.x + blockIdx.x;  // the ROI's index in the batch
+  const int vh = ext.hw[blockIdx.y].x, vw = ext.hw[blockIdx.y].y;
   const roi_align::RoiGeom geom = roi_align::roi_geom(
       rois + 4 * static_cast<int64_t>(n), scale, r, sampling_ratio, cap);
   for (int t = threadIdx.x; t < 2 * r; t += blockDim.x) {
@@ -161,22 +179,32 @@ __device__ __forceinline__ void store_vec(T* p, const float (&v)[VB / sizeof(T)]
 
 // grid.x = slices x groups, the slice fastest, so that the slices of a ROI
 // write neighbouring pieces of its output rows at about the same time;
-// blockDim.x = kThreads. Block (slice, group) holds channels [c0, c0 + cs)
+// grid.y = the image of the batch; blockDim.x = kThreads. Block (slice,
+// group) of image b reads that image's features, taps and output, with its
+// valid extent, and holds channels [c0, c0 + cs)
 // of every valid cell in shared memory, cell after cell (channels beyond c
 // as zero), and computes them for the bins of ROIs group, group + groups,
 // ... A bin takes cs * sizeof(T) / VB neighbouring lanes, each summing
 // V = VB / sizeof(T) channels. kVecIO: C * sizeof(T) is a multiple of 16 and
 // the pointers are 16-byte aligned, so a slice of 16 bytes or more a cell
 // is staged with 16-byte cp.async copies and out is written with VB-byte
-// stores; otherwise element by element.
-template <typename T, int VB, bool kVecIO>
+// stores; otherwise element by element. kBatch: more than one image. The
+// call of one image takes the image as the constant 0, so that its ROI
+// loop carries no image index: that index costs the loop 1.4 % of device
+// time at the eval 1200 pass, and 3.3 % as offsets of the base pointers
+// (H100, scripts/roi_align_fwd_bench.py --profile).
+template <typename T, int VB, bool kVecIO, bool kBatch>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_slice_kernel(const T* __restrict__ feat, const int2* __restrict__ taps,
-                     T* __restrict__ out, int n, int width, int c, int vh,
-                     int vw, int r, int k, int cs, int groups) {
+                     T* __restrict__ out, Extents ext, int n, int height,
+                     int width, int c, int r, int k, int cs, int groups) {
   constexpr int V = VB / static_cast<int>(sizeof(T));
   extern __shared__ __align__(16) unsigned char smem[];
   T* fs = reinterpret_cast<T*>(smem);
+
+  const int image = kBatch ? static_cast<int>(blockIdx.y) : 0;
+  const int vh = ext.hw[image].x, vw = ext.hw[image].y;
+  feat += static_cast<int64_t>(image) * height * width * c;
 
   const int slices = (c + cs - 1) / cs;
   const int slice = blockIdx.x % slices, group = blockIdx.x / slices;
@@ -219,7 +247,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // nothing
   for (int base = 0, it = threadIdx.x / lanes; base < items; base += step, it += step) {
     const bool active = it < items;
-    const int roi = group + (active ? nth : 0) * groups;
+    // the ROI's index in the batch, which indexes the taps and the output
+    const int roi = image * n + group + (active ? nth : 0) * groups;
     const int2* ty = taps + (static_cast<int64_t>(roi) * 2 * r + py) * (k + 1);
     const int2* tx = taps + (static_cast<int64_t>(roi) * 2 * r + r + px) * (k + 1);
     const int bin = py * r + px;
@@ -302,27 +331,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-using LaunchFn = int (*)(const void*, const float*, void*, int2*, int, int, int,
-                         int, int, int, float, int, int, int, int, int, int,
-                         cudaStream_t);
+using LaunchFn = int (*)(const void*, const float*, void*, int2*, const Extents&,
+                         int, int, int, int, int, int, float, int, int, int,
+                         int, int, int, cudaStream_t);
 
 template <typename T, int VB, bool kVecIO>
-int launch(const void* feat, const float* rois, void* out, int2* taps, int n,
-           int width, int c, int vh, int vw, int r, float scale,
-           int sampling_ratio, int cap, int k, int cs, int groups, int smem,
-           cudaStream_t stream) {
-  fwd_taps_kernel<<<n, 32, 0, stream>>>(rois, taps, vh, vw, r, scale,
-                                        sampling_ratio, cap, k,
-                                        cs * static_cast<int>(sizeof(T)));
+int launch(const void* feat, const float* rois, void* out, int2* taps,
+           const Extents& ext, int batch, int n, int height, int width, int c,
+           int r, float scale, int sampling_ratio, int cap, int k, int cs,
+           int groups, int smem, cudaStream_t stream) {
+  fwd_taps_kernel<<<dim3(n, batch), 32, 0, stream>>>(rois, taps, ext, r, scale,
+                                                     sampling_ratio, cap, k,
+                                                     cs * static_cast<int>(sizeof(T)));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = fwd_slice_kernel<T, VB, kVecIO>;
+  auto kernel = batch > 1 ? fwd_slice_kernel<T, VB, kVecIO, true>
+                          : fwd_slice_kernel<T, VB, kVecIO, false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slices = (c + cs - 1) / cs;
-  kernel<<<slices * groups, kThreads, smem, stream>>>(
-      static_cast<const T*>(feat), taps, static_cast<T*>(out), n, width, c,
-      vh, vw, r, k, cs, groups);
+  kernel<<<dim3(slices * groups, batch), kThreads, smem, stream>>>(
+      static_cast<const T*>(feat), taps, static_cast<T*>(out), ext, n, height,
+      width, c, r, k, cs, groups);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -338,34 +368,64 @@ LaunchFn pick(int vb, bool vec) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. features (H, W, C) contiguous; rois
-// (N, 4) float32 xyxy in image coordinates; out (N, R, R, C) in the
-// feature dtype, every element written. scratch, 8-byte aligned, holds the
-// tap tables: N * 2 * R * (2 * grid + 1) pairs of 32-bit words, grid the
-// samples a bin and axis (sampling_ratio, or cap when it is 0). cs (channels
-// of a slice, a power of two of 8 to 128 bytes), groups (of ROIs) and
-// smem (vh * vw * cs * element size, bytes) are the plan of
-// cim_tpu_torch.ops.roi_align._fwd_plan; a plan that does not fit this
+// dtype: 0 = float32, 1 = bfloat16. features (B, H, W, C) contiguous;
+// rois (B, N, 4) float32 xyxy in image coordinates; valid_hw, in host
+// memory, the 2 * B ints vh_0, vw_0, vh_1, ... of the images' valid
+// extents (1 <= vh <= H, 1 <= vw <= W), copied into the kernels'
+// parameters; out (B, N, R, R, C) in the feature dtype, every element
+// written. scratch, 8-byte aligned, holds the tap tables: B * N * 2 * R *
+// (2 * grid + 1) pairs of 32-bit words, grid the samples a bin and axis
+// (sampling_ratio, or cap when it is 0). cs (channels of a slice, a power
+// of two of 8 to 128 bytes), groups (of ROIs) and smem (the largest
+// vh * vw of the batch times cs times the element size, bytes) are the plan
+// of cim_tpu_torch.ops.roi_align._fwd_plan; a plan that does not fit this
 // build is refused. Returns the first CUDA error of the launches (0 = ok).
+extern "C" int roi_align_fwd_batched(const void* feat, const void* rois,
+                                     void* out, int batch, int n, int height,
+                                     int width, int c, const int* valid_hw,
+                                     int r, float spatial_scale,
+                                     int sampling_ratio, int cap, int dtype,
+                                     void* stream, void* scratch, int cs,
+                                     int groups, int smem) {
+  if (batch < 1 || batch > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || c == 0) return static_cast<int>(cudaGetLastError());
+  const int size = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  const int grid = sampling_ratio > 0 ? sampling_ratio : cap;
+  const int cell = cs * size;
+  Extents ext{};
+  int cells = 0;
+  for (int b = 0; b < batch; ++b) {
+    const int vh = valid_hw[2 * b], vw = valid_hw[2 * b + 1];
+    if (vh < 1 || vh > height || vw < 1 || vw > width)
+      return static_cast<int>(cudaErrorInvalidValue);
+    ext.hw[b] = make_int2(vh, vw);
+    cells = max(cells, vh * vw);
+  }
+  if (size == 0 || r < 1 || groups < 1 || cs < 1 || (cs & (cs - 1)) != 0 ||
+      cell < 8 || cell > 128 || grid < 1 || grid > kMaxGrid || smem != cells * cell)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = roi_align::aligned16(feat) && roi_align::aligned16(out) &&
+                   (c * size) % 16 == 0;
+  const int vb = cell < 16 ? cell : 16;
+  const LaunchFn fn = dtype == 0 ? pick<float>(vb, vec) : pick<__nv_bfloat16>(vb, vec);
+  return fn(feat, static_cast<const float*>(rois), out, static_cast<int2*>(scratch), ext,
+            batch, n, height, width, c, r, spatial_scale, sampling_ratio, cap, 2 * grid,
+            cs, groups, smem, static_cast<cudaStream_t>(stream));
+}
+
+// The call of one image: features (H, W, C), rois (N, 4), out (N, R, R, C)
+// and its valid extent (vh, vw); otherwise as roi_align_fwd_batched. The
+// package makes every call through roi_align_fwd_batched; this is the
+// interface of earlier builds, through which scripts/roi_align_fwd_bench.py
+// times them beside this one.
 extern "C" int roi_align_fwd(const void* feat, const void* rois, void* out,
                              int n, int height, int width, int c, int vh,
                              int vw, int r, float spatial_scale,
                              int sampling_ratio, int cap, int dtype,
                              void* stream, void* scratch, int cs, int groups,
                              int smem) {
-  (void)height;
-  if (n == 0 || c == 0) return static_cast<int>(cudaGetLastError());
-  const int size = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
-  const int grid = sampling_ratio > 0 ? sampling_ratio : cap;
-  const int cell = cs * size;
-  if (size == 0 || r < 1 || groups < 1 || cs < 1 || (cs & (cs - 1)) != 0 ||
-      cell < 8 || cell > 128 || grid < 1 || grid > kMaxGrid || smem != vh * vw * cell)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = roi_align::aligned16(feat) && roi_align::aligned16(out) &&
-                   (c * size) % 16 == 0;
-  const int vb = cell < 16 ? cell : 16;
-  const LaunchFn fn = dtype == 0 ? pick<float>(vb, vec) : pick<__nv_bfloat16>(vb, vec);
-  return fn(feat, static_cast<const float*>(rois), out, static_cast<int2*>(scratch), n,
-            width, c, vh, vw, r, spatial_scale, sampling_ratio, cap, 2 * grid, cs,
-            groups, smem, static_cast<cudaStream_t>(stream));
+  const int valid_hw[2] = {vh, vw};
+  return roi_align_fwd_batched(feat, rois, out, 1, n, height, width, c, valid_hw, r,
+                               spatial_scale, sampling_ratio, cap, dtype, stream,
+                               scratch, cs, groups, smem);
 }

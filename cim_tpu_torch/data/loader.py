@@ -22,7 +22,10 @@ design; the port keeps it so that the same seed gives the same arrays:
   boxes/masks/mat/iou matrices (the reference's _sample_rois
   minibatch.py:92-106 samples only boxes — latent bug since the cap of
   4096 rarely triggers; here the cap is load-bearing so it is correct);
-- background-thread prefetch replaces worker processes.
+- background-thread prefetch replaces worker processes; with
+  ``pin_memory`` the producer threads also copy each batch into pinned
+  host memory (pin_batch), so that the trainer's copies to the card are
+  asynchronous and the main thread pins nothing.
 """
 from __future__ import annotations
 
@@ -31,8 +34,10 @@ import os
 import pickle
 import queue
 import threading
+import time
 
 import numpy as np
+import torch
 
 from cim_tpu_torch.data.transforms import prep_image, scale_for_target
 
@@ -73,6 +78,17 @@ def load_iou_maps(cfg, entry, index):
     iou = iou[np.ix_(index, index)]
     asy = asy[np.ix_(index, index)]
     return iou, asy
+
+
+def pin_batch(batch):
+    """A batch's arrays as torch tensors in pinned (page-locked) host
+    memory, image_hw left as it is: each array is copied once into a
+    block of PyTorch's caching host allocator. That allocator records the
+    stream of every non_blocking copy out of a block and hands the block
+    out again only after the copy has run, so dropping the batch while its
+    copies are queued is safe. Pinning needs a CUDA device."""
+    return {k: v if k == "image_hw" else torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+            for k, v in batch.items()}
 
 
 def proposal_bucket(cfg, n: int) -> int:
@@ -169,8 +185,17 @@ class TrainLoader:
     """
 
     def __init__(self, cfg, roidb, grad_accum: int, seed: int = 3,
-                 prefetch: int = 2, num_workers: int | None = None):
+                 prefetch: int = 2, num_workers: int | None = None,
+                 pin_memory: bool = False, start: int = 0):
+        """pin_memory: hand out batches pinned by pin_batch (for a CUDA
+        trainer), pinned in the threads that build them. start: the number
+        of batches of the seed's sequence to pass over (built and dropped
+        where they draw from the loader's own generator), so that a resumed
+        run continues the sequence where its checkpoint left it."""
         self.cfg = cfg
+        self.pin_memory = pin_memory
+        self.start = start
+        self.build_seconds: list = []  # host time of each batch built
         self.roidb = roidb
         self.grad_accum = grad_accum
         self.per_step = grad_accum
@@ -222,6 +247,16 @@ class TrainLoader:
             pending.setdefault(key, []).append((entry, s))
             if len(pending[key]) >= self.per_step:
                 group = pending.pop(key)[: self.per_step]
+                if group_idx < self.start:
+                    if self._pool is None:
+                        # build it and drop it, so that it takes from the
+                        # shared generator what it would have taken, and
+                        # the batches after it come out as they would have;
+                        # the pool's builds draw from their own generators
+                        for e, s in group:
+                            build_microbatch(self.cfg, e, s, bucket, self.rng, n_max=n_bucket)
+                    group_idx += 1
+                    continue
                 if self._pool is not None:
                     grp_rng = np.random.RandomState(
                         (self.seed * 1000003 + group_idx) % (2**32)
@@ -241,11 +276,15 @@ class TrainLoader:
 
     def _stack(self, group, bucket, n_bucket=None, rng=None):
         rng = rng if rng is not None else self.rng
+        t0 = time.perf_counter()
         mbs = [
             build_microbatch(self.cfg, e, s, bucket, rng, n_max=n_bucket)
             for e, s in group
         ]
-        return {key: np.stack([mb[key] for mb in mbs]) for key in mbs[0]}
+        batch = {key: np.stack([mb[key] for mb in mbs]) for key in mbs[0]}
+        batch = pin_batch(batch) if self.pin_memory else batch
+        self.build_seconds.append(time.perf_counter() - t0)
+        return batch
 
     # -------------------------------------------------------------- #
     def __iter__(self):
@@ -276,5 +315,6 @@ class TrainLoader:
         if self._thread is not None:
             self._thread.join(timeout=5)
         if self._pool is not None:
-            self._pool.shutdown(wait=False, cancel_futures=True)
+            # let running builds end before the caller may remove their files
+            self._pool.shutdown(wait=True, cancel_futures=True)
             self._pool = None

@@ -152,6 +152,73 @@ def make_train_batch(rng, n_devices, grad_accum, **kw):
     return out
 
 
+def write_synthetic_train_dataset(data_dir, n_images, n_props, rng, image_hw=(96, 128),
+                                  n_categories=20, iou_fn=None):
+    """On-disk synthetic training set, as the real training path reads it:
+    per image a JPEG, ``n_props`` COB-style mask proposals (boxes, 7x7
+    rasterizations and scores in props.pkl), a PCL cluster matrix
+    (label_assign.pkl) and its IoU and asymmetric-IoU matrices as float16
+    pickles (iou/, asy/), and in ann.json two gt objects an image, whose
+    classes are its image-level labels. iou_fn(masks (n, h, w) bool) ->
+    (iou, asy) float arrays; by default mask_matrices on the host (an
+    O(n^2 h w) product: pass one that runs on a card at full size).
+    Returns {image_dir, ann, props, label_assign, iou_dir, asy_iou_dir}."""
+    import json
+    import os
+    import pickle
+
+    import cv2
+
+    from cim_tpu_torch.evaluation import rle as rle_util
+
+    iou_fn = iou_fn or mask_matrices
+    paths = {"image_dir": os.path.join(data_dir, "images"), "ann": os.path.join(data_dir, "ann.json"),
+             "props": os.path.join(data_dir, "props.pkl"),
+             "label_assign": os.path.join(data_dir, "label_assign.pkl"),
+             "iou_dir": os.path.join(data_dir, "iou"), "asy_iou_dir": os.path.join(data_dir, "asy")}
+    for d in (paths["image_dir"], paths["iou_dir"], paths["asy_iou_dir"]):
+        os.makedirs(d, exist_ok=True)
+    h, w = image_hw
+    images, annotations = [], []
+    prop = {"indexes": [], "boxes": [], "masks": [], "scores": []}
+    mats = {"indexes": [], "mat": []}
+    for i in range(n_images):
+        name = f"{i:06d}"
+        cv2.imwrite(os.path.join(paths["image_dir"], name + ".jpg"),
+                    (rng.rand(h, w, 3) * 255).astype(np.uint8))
+        images.append({"id": i + 1, "width": w, "height": h, "file_name": name + ".jpg"})
+        masks, boxes = synthetic_masks(rng, n_props, h, w)
+        iou, asy = iou_fn(masks)
+        for d, m in ((paths["iou_dir"], iou), (paths["asy_iou_dir"], asy)):
+            with open(os.path.join(d, name + ".pkl"), "wb") as f:
+                pickle.dump(np.asarray(m, np.float16), f)
+        prop["indexes"].append(i + 1)
+        prop["boxes"].append(boxes)
+        prop["masks"].append(masks_to_7x7(masks, boxes).astype(np.float32))
+        prop["scores"].append(rng.rand(n_props).astype(np.float32))
+        mat = np.zeros((n_props, n_categories + 1), np.float32)
+        mat[0, int(rng.randint(0, 3)) + 1] = 1
+        mats["indexes"].append(i + 1)
+        mats["mat"].append(mat)
+        for j in range(2):
+            b = boxes[j]
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": i + 1,
+                "category_id": (i + j) % n_categories + 1,
+                "bbox": [float(b[0]), float(b[1]), float(b[2] - b[0] + 1), float(b[3] - b[1] + 1)],
+                "segmentation": rle_util.encode(masks[j].astype(np.uint8)),
+                "area": float(masks[j].sum()), "iscrowd": 0,
+            })
+    with open(paths["ann"], "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": c + 1, "name": f"c{c}"} for c in range(n_categories)]}, f)
+    with open(paths["props"], "wb") as f:
+        pickle.dump(prop, f)
+    with open(paths["label_assign"], "wb") as f:
+        pickle.dump(mats, f)
+    return paths
+
+
 def write_synthetic_coco_dataset(data_dir, n_images, n_props, rng,
                                  image_hw=(64, 96), write_jpegs=False,
                                  n_categories=20):

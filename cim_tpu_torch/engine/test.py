@@ -7,13 +7,15 @@ then each scale with its hflip, then identity, and averages the scores
 over the passes (AVG heuristic, boxes by ID). An hflip pass flips the
 image, the boxes (W - x2 - 1) and the 7x7 masks.
 
-Ported here is cim_tpu's fused single-image path: the original uint8
-image is padded to a 128-multiple bucket and moved to the device once,
-every pass resizes it there (ops.image.resize_bilinear_dynamic, with the
-hflip folded in) onto a canvas of 64-multiples sized by the image's aspect
-bucket, and proposals pad to a multiple of 256 with a validity mask. The
-per-pass host path (which needs cv2) and the cross-image BatchedEvaluator
-are not ported yet.
+Ported here is cim_tpu's fused path: the original uint8 image is padded
+to a 128-multiple bucket and moved to the device once, every pass resizes
+it there (ops.image.resize_bilinear_dynamic, with the hflip folded in)
+onto a canvas of 64-multiples sized by the image's aspect bucket, and
+proposals pad to a multiple of 256 with a validity mask. Evaluator runs
+one image at a time; BatchedEvaluator stacks the images that share a
+bucket and runs every pass of the stack as one forward (cim_tpu's vmap,
+written out as a batch axis). The per-pass host path (which needs cv2),
+and with it the non-fused batched path, is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 
 from cim_tpu_torch.data.transforms import TORCH_MEAN, TORCH_STD
 from cim_tpu_torch.ops.boxes import flip_boxes
-from cim_tpu_torch.ops.image import resize_bilinear_dynamic
+from cim_tpu_torch.ops.image import resize_bilinear_dynamic, resize_bilinear_dynamic_batched
 from cim_tpu_torch.ops.nms import nms_np, soft_nms_np
 from cim_tpu_torch.utils.device import check_on, resolve_device
 
@@ -33,6 +35,15 @@ PAD_MULTIPLE = 128
 
 def _round_up(x: int, m: int) -> int:
     return int(math.ceil(x / m) * m)
+
+
+def _pass_canvas(target: int, ratio_hw):
+    """A pass's canvas: (ceil(target * rh), ceil(target * rw)) rounded up
+    to 64, which always holds the resized content round(src * target /
+    max_side)."""
+    rh, rw = ratio_hw
+    return (_round_up(int(np.ceil(target * rh)), PAD_MULTIPLE // 2),
+            _round_up(int(np.ceil(target * rw)), PAD_MULTIPLE // 2))
 
 
 class Evaluator:
@@ -48,6 +59,12 @@ class Evaluator:
         self.device = resolve_device(device)
         check_on(model, self.device, "Evaluator")
         self.model = model.eval()
+        # made once: a tensor built from host data on the card is a copy
+        # from pageable memory, which waits for the card's queue
+        self._pixel_means = torch.as_tensor(np.asarray(cfg.PIXEL_MEANS, np.float32),
+                                            device=self.device)
+        self._mean = torch.as_tensor(TORCH_MEAN, device=self.device)
+        self._std = torch.as_tensor(TORCH_STD, device=self.device)
 
     @staticmethod
     def tta_pass_list(cfg):
@@ -91,33 +108,19 @@ class Evaluator:
         holds the resized content round(src * target / max_side).
         """
         cfg = self.cfg
-        dev = image_u8.device
         max_side = np.float32(max(im_h, im_w))
         masks_f = torch.flip(masks, [2])
-        if cfg.transform_mode == "org":
-            # blob.py:101-103: float32 BGR minus means, then resize
-            means = torch.as_tensor(np.asarray(cfg.PIXEL_MEANS, np.float32).reshape(1, 1, 3),
-                                    device=dev)
-            base = image_u8.float() - means
-        else:
-            base = image_u8.flip(-1).float()  # BGR -> RGB
-        mean = torch.as_tensor(TORCH_MEAN, device=dev)
-        std = torch.as_tensor(TORCH_STD, device=dev)
+        base = self._base_image(image_u8)
 
-        rh, rw = ratio_hw
         passes = self.tta_pass_list(cfg)
         total = None
         for target, hflip in passes:
-            ch = _round_up(int(np.ceil(target * rh)), PAD_MULTIPLE // 2)
-            cw = _round_up(int(np.ceil(target * rw)), PAD_MULTIPLE // 2)
             s = np.float32(target) / max_side
             img, (ovh, ovw) = resize_bilinear_dynamic(
-                base, (ch, cw), s, (im_h, im_w), hflip=hflip
+                base, _pass_canvas(target, ratio_hw), s, (im_h, im_w), hflip=hflip
             )
             if cfg.transform_mode == "ToTensor":
-                # blob.py:127-139: uint8 truncation, /255, normalize
-                img = torch.floor(img.clamp(0.0, 255.0)) / 255.0
-                img = (img - mean) / std
+                img = self._normalize(img)
                 img[ovh:] = 0.0
                 img[:, ovw:] = 0.0
             if hflip:
@@ -131,6 +134,17 @@ class Evaluator:
             sc = (out["refine_cls"] * out["refine_iou"])[:, :, 1:].mean(dim=0)
             total = sc if total is None else total + sc
         return total / float(len(passes))
+
+    def _base_image(self, image_u8):
+        """The float32 image (or stack) the passes resize: BGR minus the
+        pixel means (blob.py:101-103, "org"), or RGB."""
+        if self.cfg.transform_mode == "org":
+            return image_u8.float() - self._pixel_means
+        return image_u8.flip(-1).float()  # BGR -> RGB
+
+    def _normalize(self, img):
+        """blob.py:127-139: uint8 truncation, /255, normalize (ToTensor)."""
+        return (torch.floor(img.clamp(0.0, 255.0)) / 255.0 - self._mean) / self._std
 
     @staticmethod
     def _ratio_bucket(h, w):
@@ -193,6 +207,109 @@ class Evaluator:
                 "AVG/ID heuristics, no aspect-ratio passes)"
             )
         return self.im_detect_all_fused(im, boxes, masks)
+
+
+class BatchedEvaluator(Evaluator):
+    """Cross-image batched TTA (port of cim_tpu/engine/test.py:428-579,
+    the fused path): whole images are grouped by (original-image bucket,
+    proposal pad, canvas-ratio bucket), and each stack of ``batch_size``
+    runs every TTA pass as one forward of the stack, so a pass launches
+    its kernels once for B images. The scores are each image's own, as
+    Evaluator gives them, to float32 rounding (batched products may sum in
+    another order).
+
+    Unlike cim_tpu, which pads a partial stack to batch_size by repeating
+    its last image (jit needs one shape), a partial stack runs at its real
+    size: eager PyTorch has no fixed shape to meet, and a repeated image
+    changes no other image's scores. The non-fused batched path (stacks of
+    single passes) needs the per-pass Evaluator path and is not ported.
+    """
+
+    def __init__(self, cfg, model, batch_size: int | None = None, device="cuda"):
+        super().__init__(cfg, model, device=device)
+        self.batch_size = int(batch_size or cfg.TPU.EVAL_BATCH)
+
+    def _batched_supported(self) -> bool:
+        aug = self.cfg.TEST.BBOX_AUG
+        return (not aug.ENABLED) or (aug.SCORE_HEUR == "AVG" and aug.COORD_HEUR == "ID")
+
+    @torch.no_grad()
+    def _fused_forward_batched(self, images_u8, rois, masks, valid, im_hws,
+                               ratio_hw=(1.0, 1.0)):
+        """All TTA passes of a stack of B images that share a bucket;
+        returns the (B, N, C) pass-averaged scores on the device.
+
+        images_u8 (B, Hp, Wp, 3) uint8 BGR, rois (B, N, 4), masks (B, N, 7,
+        7), valid (B, N), im_hws the B (im_h, im_w). Each image keeps its
+        own scale, flip width and content extent, as under cim_tpu's vmap;
+        the canvas of a pass is the stack's (one ratio bucket).
+        """
+        cfg = self.cfg
+        dev = images_u8.device
+        max_side = np.array([max(h, w) for h, w in im_hws], np.float32)
+        passes = self.tta_pass_list(cfg)
+        # float32 scales of every (pass, image), computed as Evaluator does
+        scales = np.array([t for t, _ in passes], np.float32)[:, None] / max_side[None, :]
+        # one copy a stack: the scales and the widths that hflip flips about
+        scales_t = torch.from_numpy(scales).to(dev)
+        widths = torch.tensor([[w] for _, w in im_hws], dtype=torch.float32, device=dev)
+        masks_f = torch.flip(masks, [-1])
+        base = self._base_image(images_u8)
+
+        total = None
+        for p, (target, hflip) in enumerate(passes):
+            img, extents = resize_bilinear_dynamic_batched(
+                base, _pass_canvas(target, ratio_hw), scales[p], im_hws, hflip=hflip
+            )
+            if cfg.transform_mode == "ToTensor":
+                img = self._normalize(img)
+                for one, (ovh, ovw) in zip(img, extents):
+                    one[ovh:] = 0.0
+                    one[:, ovw:] = 0.0
+            s = scales_t[p][:, None, None]
+            r = (flip_boxes(rois, widths) if hflip else rois) * s
+            out = self.model(img, r, masks_f if hflip else masks, valid, im_hw=extents)
+            sc = (out["refine_cls"] * out["refine_iou"])[..., 1:].mean(dim=-3)
+            total = sc if total is None else total + sc
+        return total / float(len(passes))
+
+    def _run_stack(self, group):
+        """group: [(item index, request)] of one key -> [(index, scores)]."""
+        reqs = [r for _, r in group]
+        dev = self.device
+        stacked = [torch.from_numpy(np.stack([r[k] for r in reqs])).to(dev)
+                   for k in ("image", "rois", "masks", "valid")]
+        scores = self._fused_forward_batched(
+            *stacked, [(r["im_h"], r["im_w"]) for r in reqs], reqs[0]["ratio_hw"]
+        ).cpu().numpy()
+        return [(idx, scores[i][: req["n"]]) for i, (idx, req) in enumerate(group)]
+
+    def _fused_batched_many(self, items):
+        out = [None] * len(items)
+        groups: dict = {}
+        for idx, (im, boxes, masks) in enumerate(items):
+            req = self._prepare_raw(im, boxes, masks)
+            key = (req["image"].shape, req["rois"].shape[0], req["ratio_hw"])
+            groups.setdefault(key, []).append((idx, req))
+            if len(groups[key]) == self.batch_size:
+                for i, scores in self._run_stack(groups.pop(key)):
+                    out[i] = scores
+        for group in groups.values():  # partial stacks, at their own size
+            for i, scores in self._run_stack(group):
+                out[i] = scores
+        return [(out[i], items[i][1]) for i in range(len(items))]
+
+    def im_detect_all_many(self, items, window: int | None = None):
+        """items: list of (im, boxes, masks). Returns [(scores, boxes)] in
+        order. ``window`` is the non-fused path's, which is not ported."""
+        if not self._batched_supported():
+            return [self.im_detect_all(im, b, m) for im, b, m in items]
+        if self.cfg.TPU.FUSED_TTA and self.fused_supported():
+            return self._fused_batched_many(items)
+        raise NotImplementedError(
+            "only the fused batched TTA path is ported (TPU.FUSED_TTA with the "
+            "AVG/ID heuristics, no aspect-ratio passes)"
+        )
 
 
 def box_results_with_nms_and_limit(cfg, scores, boxes):

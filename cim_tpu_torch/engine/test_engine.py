@@ -6,9 +6,11 @@ the roidb calling im_detect_all and pickles {image: {scores, boxes}} as
 detections.pkl (val) or discovery.pkl (train CorLoc); run_inference then
 applies box_results_with_nms_and_limit (or box_results_for_corloc) per
 image and calls task_evaluation.evaluate_all. The dataset, roidb and
-metric code are the port's copies of cim_tpu's host modules. The cross-image
-batched evaluator (TPU.EVAL_BATCH > 1), the overlap of host NMS with the
-next image and the multi-process fan-out are not ported yet.
+metric code are the port's copies of cim_tpu's host modules. With
+TPU.EVAL_BATCH > 1 (the shipped configs' 8) images go through the
+cross-image BatchedEvaluator in windows of 4 x EVAL_BATCH. The overlap of
+host NMS with the next image, multi-GPU eval (TPU.EVAL_DEVICES over more
+than one card) and the multi-process fan-out are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,13 +19,17 @@ import os
 import pickle
 from collections import defaultdict
 
+import torch
+
 from cim_tpu_torch.data.json_dataset import JsonDataset
 from cim_tpu_torch.engine.stats import Timer
 from cim_tpu_torch.engine.test import (
+    BatchedEvaluator,
     Evaluator,
     box_results_for_corloc,
     box_results_with_nms_and_limit,
 )
+from cim_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -70,32 +76,64 @@ def test_net(
     """Single-device dataset loop. model: a CIMModel on ``device`` (the
     card unless the caller passes device="cpu").
     image_loader(entry) -> (H, W, 3) uint8 BGR image (defaults to
-    cv2.imread). evaluator: a prebuilt Evaluator to reuse."""
-    if int(cfg.TPU.EVAL_BATCH or 1) > 1:
-        raise NotImplementedError(
-            "TPU.EVAL_BATCH > 1 (the cross-image BatchedEvaluator) is not ported yet; set it to 1"
-        )
+    cv2.imread). evaluator: a prebuilt Evaluator (TPU.EVAL_BATCH 1) or
+    BatchedEvaluator (above 1) to reuse."""
     roidb, dataset, start_ind, end_ind, total_num_images = get_roidb_and_dataset(
         cfg, dataset_name, proposal_file, ind_range
     )
     num_images = len(roidb)
     image_loader = image_loader or _default_image_loader
-    evaluator = evaluator or Evaluator(cfg, model, device=device)
     timers = defaultdict(Timer)
     all_scores = {}
-    for i, entry in enumerate(roidb):
-        im = image_loader(entry)
-        timers["im_detect_bbox"].tic()
-        scores, boxes = evaluator.im_detect_all(im, entry["boxes"], entry["masks"])
-        timers["im_detect_bbox"].toc()
-        all_scores[entry["image"]] = {"scores": scores, "boxes": boxes}
-        if i % 10 == 0:
-            ave = timers["im_detect_bbox"].average_time
+    eval_batch = int(cfg.TPU.EVAL_BATCH or 1)
+    eval_devices = int(cfg.TPU.get("EVAL_DEVICES", 1) or 1)
+    if eval_batch > 1:
+        # cross-image batched TTA (engine.test.BatchedEvaluator)
+        if eval_devices != 1:
+            device = resolve_device(device)
+            local = torch.cuda.device_count() if device.type == "cuda" else 1
+            if local > 1:
+                raise NotImplementedError(
+                    f"TPU.EVAL_DEVICES={eval_devices} over {local} visible cards: "
+                    "multi-GPU eval is not ported yet; set TPU.EVAL_DEVICES to 1"
+                )
+            logger.warning("TPU.EVAL_DEVICES=%d with %d local device; using 1",
+                           eval_devices, local)
+        evaluator = evaluator or BatchedEvaluator(cfg, model, eval_batch, device=device)
+        window = 4 * evaluator.batch_size
+        for w0 in range(0, num_images, window):
+            chunk = roidb[w0: w0 + window]
+            items = [(image_loader(e), e["boxes"], e["masks"]) for e in chunk]
+            timers["im_detect_bbox"].tic()
+            results = evaluator.im_detect_all_many(items, window)
+            timers["im_detect_bbox"].toc(average=False)
+            for e, (scores, boxes) in zip(chunk, results):
+                all_scores[e["image"]] = {"scores": scores, "boxes": boxes}
+            done = min(w0 + window, num_images)
+            ave = timers["im_detect_bbox"].total_time / done
             logger.info(
-                "im_detect: range [%d, %d] of %d: %d/%d %.3fs (eta: %ds)",
-                start_ind + 1, end_ind, total_num_images, start_ind + i + 1,
-                start_ind + num_images, ave, int((num_images - i - 1) * ave),
+                "im_detect: range [%d, %d] of %d: %d/%d %.3fs/im (eta: %ds)",
+                start_ind + 1, end_ind, total_num_images, start_ind + done,
+                start_ind + num_images, ave, int((num_images - done) * ave),
             )
+    else:
+        if eval_devices != 1:
+            logger.warning("TPU.EVAL_DEVICES has no effect with TPU.EVAL_BATCH <= 1; "
+                           "running the sequential single-device evaluator")
+        evaluator = evaluator or Evaluator(cfg, model, device=device)
+        for i, entry in enumerate(roidb):
+            im = image_loader(entry)
+            timers["im_detect_bbox"].tic()
+            scores, boxes = evaluator.im_detect_all(im, entry["boxes"], entry["masks"])
+            timers["im_detect_bbox"].toc()
+            all_scores[entry["image"]] = {"scores": scores, "boxes": boxes}
+            if i % 10 == 0:
+                ave = timers["im_detect_bbox"].average_time
+                logger.info(
+                    "im_detect: range [%d, %d] of %d: %d/%d %.3fs (eta: %ds)",
+                    start_ind + 1, end_ind, total_num_images, start_ind + i + 1,
+                    start_ind + num_images, ave, int((num_images - i - 1) * ave),
+                )
 
     det_name = _det_basename(check_corloc) + ".pkl"
     if ind_range is not None:

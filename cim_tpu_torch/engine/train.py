@@ -142,16 +142,28 @@ def make_loss_fn(cfg, model):
     return loss_fn
 
 
+def metrics_to_floats(metrics) -> Dict[str, float]:
+    """Trainer.step_async's metrics as floats, read from the device in
+    one copy (the one wait for the step)."""
+    keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+    values = torch.stack([metrics[k] for k in keys]).tolist() if keys else []
+    out = dict(metrics)
+    out.update(zip(keys, values))
+    return out
+
+
 class Trainer:
     """Model, optimizer and the train step on one device: the card unless
     the caller passes device="cpu".
 
-    step(batch) takes numpy arrays with a leading GRAD_ACCUM axis (the
-    layout of data.loader.TrainLoader and data.synthetic.make_train_batch
-    with one device), moves each microbatch to the device, runs one
-    forward and backward per microbatch, and applies one optimizer update
-    at lr_schedule(step). It returns the per-microbatch mean of every loss
-    metric and the LR, as floats. The phases are labelled for
+    step(batch) takes arrays with a leading GRAD_ACCUM axis (the layout of
+    data.loader.TrainLoader and data.synthetic.make_train_batch with one
+    device), moves each microbatch to the device, runs one forward and
+    backward per microbatch, and applies one optimizer update at
+    lr_schedule(step). It returns the per-microbatch mean of every loss
+    metric and the LR, as floats. step_async(batch) runs the same step and
+    returns the metrics as tensors on the device, without waiting for
+    them. The phases are labelled for
     torch.profiler (cim.forward, cim.losses, cim.mining, cim.backward,
     cim.optimizer); without a profiler a label is one range push and
     pop per phase.
@@ -179,15 +191,31 @@ class Trainer:
         self.model.load_state_dict(state_dict, strict=True)
 
     def microbatch(self, batch, i):
-        """Microbatch i of a step's numpy batch, on the trainer's device
-        (image_hw stays on the host)."""
-        mb = {k: torch.from_numpy(np.ascontiguousarray(v[i])).to(self.device)
-              for k, v in batch.items() if k != "image_hw"}
-        if "image_hw" in batch:
-            mb["image_hw"] = tuple(int(x) for x in batch["image_hw"][i])
+        """Microbatch i of a step's batch, on the trainer's device
+        (image_hw stays on the host). Tensors in pinned host memory (as
+        data.loader.pin_batch leaves them) are copied with
+        non_blocking=True: the copy queues on the stream and the host goes
+        on. numpy arrays are copied from pageable memory, which holds the
+        host until the copy is done."""
+        mb = {}
+        for k, v in batch.items():
+            if k == "image_hw":
+                mb[k] = tuple(int(x) for x in v[i])
+            elif isinstance(v, torch.Tensor):
+                mb[k] = v[i].to(self.device, non_blocking=True)
+            else:
+                mb[k] = torch.from_numpy(np.ascontiguousarray(v[i])).to(self.device)
         return mb
 
     def step(self, batch) -> Dict[str, float]:
+        return metrics_to_floats(self.step_async(batch))
+
+    def step_async(self, batch) -> Dict[str, torch.Tensor | float]:
+        """The step of :meth:`step`, without waiting for the card at its
+        end: every loss metric as a 0-d tensor on the device, and "lr" as a
+        float. Reading a metric waits for the step, so a training loop
+        reads step i's after it has dispatched step i + 1. Mining's greedy
+        NMS still waits for the card once a round."""
         accum = batch["labels"].shape[0]
         self.optimizer.zero_grad()
         self.last_nms_rounds = []
@@ -204,6 +232,6 @@ class Trainer:
         with record_function("cim.optimizer"):
             self.optimizer.step(lr)
         self.step_count += 1
-        metrics = dict(zip(losses.keys(), (sums / accum).tolist()))
+        metrics = dict(zip(losses.keys(), (sums / accum).unbind()))
         metrics["lr"] = lr
         return metrics

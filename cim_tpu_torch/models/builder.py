@@ -28,7 +28,12 @@ BACKBONES = {
 class CIMModel(nn.Module):
     """forward(image (H, W, 3), rois (N, 4), masks (N, 7, 7), valid (N,),
     im_hw=None) -> dict with predict_cls / predict_det (N, C+1),
-    refine_cls / refine_iou (K, N, C+1) and blob_conv (h, w, C) float32."""
+    refine_cls / refine_iou (K, N, C+1) and blob_conv (h, w, C) float32.
+
+    A batch of images (cim_tpu's vmap over the forward, evaluation only):
+    image (B, H, W, 3), rois (B, N, 4), masks (B, N, 7, 7), valid (B, N)
+    and im_hw None or a list of B (h, w) pairs; every output gains the
+    leading batch axis."""
 
     def __init__(self, conv_body: str = "resnet50.torch_resnet50",
                  num_classes: int = 20, refine_times: int = 3,
@@ -55,16 +60,21 @@ class CIMModel(nn.Module):
         )
 
     def convbody_net(self, image, im_hw=None):
-        """Conv body only: image (H, W, 3) -> features (h, w, C) float32."""
-        x = image.to(self.compute_dtype).permute(2, 0, 1)[None]
+        """Conv body only: image (H, W, 3) -> features (h, w, C) float32,
+        or (B, H, W, 3) -> (B, h, w, C)."""
+        batched = image.dim() == 4
+        x = image.to(self.compute_dtype)
+        x = x.permute(0, 3, 1, 2) if batched else x.permute(2, 0, 1)[None]
         x = x.contiguous(memory_format=torch.channels_last)
-        feat = self.Conv_Body(x, im_hw)[0]  # (C, h, w), NHWC in memory
-        return feat.permute(1, 2, 0).float().contiguous()
+        feat = self.Conv_Body(x, im_hw)  # (B, C, h, w), NHWC in memory
+        feat = feat.permute(0, 2, 3, 1) if batched else feat[0].permute(1, 2, 0)
+        return feat.float().contiguous()
 
     def forward(self, image, rois, masks, valid, im_hw=None) -> Dict[str, torch.Tensor]:
         """im_hw: optional (h, w) true image extent when ``image`` is a
-        zero-padded bucket; it threads valid-extent masking through the
-        backbone and RoIAlign, so padded and unpadded runs agree."""
+        zero-padded bucket (one pair per image for a batch); it threads
+        valid-extent masking through the backbone and RoIAlign, so padded
+        and unpadded runs agree."""
         feat = self.convbody_net(image, im_hw)
         seg_x = self.Box_Head(feat, rois, masks, self.body_cls.feature_valid_hw(im_hw))
         predict_cls, predict_det, refine_cls, refine_iou = self.cls_iou_model(seg_x, valid)

@@ -17,7 +17,9 @@ NEG = -1e30
 
 
 def masked_softmax_over_proposals(logits, valid):
-    return torch.softmax(logits.masked_fill(~valid[:, None], NEG), dim=0)
+    """Softmax over the proposals of each image: logits (N, C+1) with
+    valid (N,), or (B, N, C+1) with (B, N)."""
+    return torch.softmax(logits.masked_fill(~valid[..., None], NEG), dim=-2)
 
 
 class ClsIouHead(nn.Module):
@@ -36,9 +38,11 @@ class ClsIouHead(nn.Module):
 
     def forward(self, seg_x, valid):
         """seg_x: (N, D) float32; valid: (N,) bool. Returns (predict_cls,
-        predict_det) (N, C+1) and (refine_cls, refine_iou) (K, N, C+1)."""
+        predict_det) (N, C+1) and (refine_cls, refine_iou) (K, N, C+1). A
+        batch of images, seg_x (B, N, D) and valid (B, N), gains the
+        leading axis: (B, N, C+1) and (B, K, N, C+1)."""
         predict_cls = torch.softmax(self.classifier(seg_x), dim=-1)
         predict_det = masked_softmax_over_proposals(self.detector(seg_x), valid)
-        refine_cls = torch.stack([torch.softmax(m(seg_x), dim=-1) for m in self.refine_cls])
-        refine_iou = torch.stack([torch.sigmoid(m(seg_x)) for m in self.refine_iou])
+        refine_cls = torch.stack([torch.softmax(m(seg_x), dim=-1) for m in self.refine_cls], dim=-3)
+        refine_iou = torch.stack([torch.sigmoid(m(seg_x)) for m in self.refine_iou], dim=-3)
         return predict_cls, predict_det, refine_cls, refine_iou

@@ -8,6 +8,7 @@ compute dtype.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -51,17 +52,43 @@ class FrozenBatchNorm(nn.Module):
         return x * inv.to(x.dtype).view(shape) + off.to(x.dtype).view(shape)
 
 
+def is_per_image(valid_hw) -> bool:
+    """True where valid_hw holds one (h, w) pair per image of a batch, not
+    one pair."""
+    return valid_hw is not None and len(valid_hw) > 0 and isinstance(valid_hw[0], (tuple, list))
+
+
+@functools.lru_cache(maxsize=64)
+def _batch_mask(h: int, w: int, extents: tuple, device: torch.device, dtype: torch.dtype):
+    """(B, 1, h, w) mask, 1 inside each image's extent and 0 beyond, filled
+    on the device (a copy from host memory would wait for the device's
+    queue); kept for the passes of a stack, which repeat it."""
+    mask = torch.zeros((len(extents), 1, h, w), device=device, dtype=dtype)
+    for m, (vh, vw) in zip(mask, extents):
+        m[:, :vh, :vw] = 1
+    return mask
+
+
 def mask_valid_hw(x: torch.Tensor, valid_hw):
     """Zero all positions at or beyond the valid extent of x (N, C, H, W).
 
     A zero-padded bucket's pad is not a fixed point of BN or conv-with-bias,
     so it is re-zeroed before every spatial conv and pool; otherwise it
     bleeds into the border of the valid region (cim_tpu/models/layers.py
-    mask_valid_hw). valid_hw: None (no-op) or a pair of ints.
+    mask_valid_hw). valid_hw: None (no-op), a pair of ints, or one pair per
+    image of the batch x (the extents of a stack of images, as cim_tpu's
+    vmap gives each image its own), whose mask is (B, 1, H, W).
     """
     if valid_hw is None:
         return x
     h, w = x.shape[-2:]
+    if is_per_image(valid_hw):
+        extents = tuple((int(vh), int(vw)) for vh, vw in valid_hw)
+        if len(extents) != x.shape[0]:
+            raise ValueError(f"{len(extents)} valid extents for a batch of {x.shape[0]}")
+        if all(vh >= h and vw >= w for vh, vw in extents):
+            return x
+        return x * _batch_mask(h, w, extents, x.device, x.dtype)
     vh, vw = int(valid_hw[0]), int(valid_hw[1])
     if vh >= h and vw >= w:
         return x
@@ -72,9 +99,12 @@ def mask_valid_hw(x: torch.Tensor, valid_hw):
 
 def ceil_div_hw(valid_hw, k: int):
     """Valid extent after a stride-k op with 'same'-style padding
-    (conv k3 s2 p1, conv k7 s2 p3, maxpool k3 s2 p1): ceil(v / k)."""
+    (conv k3 s2 p1, conv k7 s2 p3, maxpool k3 s2 p1): ceil(v / k), of
+    one pair or of each image's."""
     if valid_hw is None:
         return None
+    if is_per_image(valid_hw):
+        return [ceil_div_hw(hw, k) for hw in valid_hw]
     return ((valid_hw[0] + k - 1) // k, (valid_hw[1] + k - 1) // k)
 
 

@@ -41,17 +41,22 @@ class MaskFuse(nn.Module):
     def forward(self, features, rois, masks, valid_hw=None):
         """features: (H, W, C); rois: (N, 4) image coordinates; masks:
         (N, 7, 7); valid_hw: optional true feature extent in the bucket.
-        Returns (N, hidden_dim) float32."""
+        Returns (N, hidden_dim) float32. A batch of images: features
+        (B, H, W, C), rois (B, N, 4), masks (B, N, 7, 7) and valid_hw None
+        or one extent per image -> (B, N, hidden_dim); the conv and the FCs
+        run on the B * N rows at once."""
         if self.dtype is not None:
             features = features.to(self.dtype)
         box_x = roi_align(
             features.contiguous(), rois, self.roi_size, self.spatial_scale,
             self.sampling_ratio, self.max_adaptive_grid, valid_hw,
-        )  # (N, R, R, C)
-        mask_x = box_x * masks.to(box_x.dtype)[..., None]
+        )  # (N, R, R, C), or (B, N, R, R, C)
+        lead = box_x.shape[:-3]
+        box_x = box_x.reshape(-1, *box_x.shape[-3:])
+        mask_x = box_x * masks.reshape(-1, *masks.shape[-2:]).to(box_x.dtype)[..., None]
         x = torch.cat([box_x, mask_x], dim=-1).permute(0, 3, 1, 2)  # NCHW view of NHWC
         x = self.mask_branch(x)
         # flatten the logical (C, H, W) order whatever the memory format, so
         # seg_fc.0 reads the reference's weight layout
         x = self.seg_fc(x.reshape(x.shape[0], -1))
-        return x.float()
+        return x.float().reshape(*lead, -1)

@@ -74,9 +74,10 @@ class ResNet50C4(nn.Module):
         self.res4 = _stage(512, 256, block_counts[2], 2, device)
 
     def forward(self, x, valid_hw=None):
-        """x: (1, 3, H, W); valid_hw: optional (h, w) image extent inside a
-        zero-padded bucket. The image pad is exact zeros, so the bias-free
-        stem conv needs no mask; every later spatial op does."""
+        """x: (B, 3, H, W); valid_hw: optional (h, w) image extent inside a
+        zero-padded bucket, or one such pair per image. The image pad is
+        exact zeros, so the bias-free stem conv needs no mask; every later
+        spatial op does."""
         x = F.relu(self.res1(x))
         valid_hw = ceil_div_hw(valid_hw, 2)
         # torch max pooling pads with -inf, as cim_tpu's max_pool_torch does
@@ -92,7 +93,6 @@ class ResNet50C4(nn.Module):
 
     @staticmethod
     def feature_valid_hw(im_hw):
-        """Valid feature extent for an (h, w) image: ceil(v / 16)."""
-        if im_hw is None:
-            return None
-        return ((im_hw[0] + 15) // 16, (im_hw[1] + 15) // 16)
+        """Valid feature extent for an (h, w) image, or for each image's:
+        ceil(v / 16)."""
+        return ceil_div_hw(im_hw, 16)

@@ -33,6 +33,4 @@ class TinyConvBody(nn.Module):
 
     @staticmethod
     def feature_valid_hw(im_hw):
-        if im_hw is None:
-            return None
-        return ((im_hw[0] + 15) // 16, (im_hw[1] + 15) // 16)
+        return ceil_div_hw(im_hw, 16)

@@ -41,6 +41,22 @@ def resize_bilinear_dynamic(image: torch.Tensor, out_hw, scale: float,
     computes them on the device. Returns (out, (ovh, ovw)) with Python ints.
     """
     out_h, out_w = out_hw
+    src_h, src_w, (ovh, ovw), ratio_y, ratio_x = _extents(src_valid_hw, scale)
+    h, w, _ = image.shape
+    dev = image.device
+    ry = _axis_weights(out_h, h, src_h, ratio_y, False, dev)
+    rx = _axis_weights(out_w, w, src_w, ratio_x, hflip, dev)
+    t = torch.einsum("oh,hwc->owc", ry, image.float())
+    out = torch.einsum("pw,owc->opc", rx, t)
+    out[ovh:] = 0.0
+    out[:, ovw:] = 0.0
+    return out, (ovh, ovw)
+
+
+def _extents(src_valid_hw, scale):
+    """The float32 host scalars of one image's resize, as
+    :func:`resize_bilinear_dynamic` computes them: (src_h, src_w, (ovh,
+    ovw), ratio_y, ratio_x)."""
     src_h = np.float32(src_valid_hw[0])
     src_w = np.float32(src_valid_hw[1])
     scale = np.float32(scale)
@@ -49,13 +65,34 @@ def resize_bilinear_dynamic(image: torch.Tensor, out_hw, scale: float,
     # cv2 maps dst -> src with the actual ratio src/out, not 1/scale
     ratio_y = float(src_h / np.float32(max(ovh, 1)))
     ratio_x = float(src_w / np.float32(max(ovw, 1)))
+    return float(src_h), float(src_w), (ovh, ovw), ratio_y, ratio_x
 
-    h, w, _ = image.shape
-    dev = image.device
-    ry = _axis_weights(out_h, h, float(src_h), ratio_y, False, dev)
-    rx = _axis_weights(out_w, w, float(src_w), ratio_x, hflip, dev)
-    t = torch.einsum("oh,hwc->owc", ry, image.float())
-    out = torch.einsum("pw,owc->opc", rx, t)
-    out[ovh:] = 0.0
-    out[:, ovw:] = 0.0
-    return out, (ovh, ovw)
+
+def resize_bilinear_dynamic_batched(images: torch.Tensor, out_hw, scales,
+                                    src_valid_hws, hflip: bool = False):
+    """:func:`resize_bilinear_dynamic` of a stack of images, each with its
+    own scale and source extent: images (B, H, W, C) -> (B, out_h, out_w,
+    C) and the list of each image's (ovh, ovw).
+
+    Each image's two axis matrices are built as the single-image call
+    builds them, then stacked and applied with two batched products
+    (torch.bmm), which may block their float32 sums otherwise than the
+    single-image products do.
+    """
+    out_h, out_w = out_hw
+    b, h, w, c = images.shape
+    dev = images.device
+    ry, rx, valid = [], [], []
+    for scale, src_hw in zip(scales, src_valid_hws, strict=True):
+        src_h, src_w, ov, ratio_y, ratio_x = _extents(src_hw, scale)
+        ry.append(_axis_weights(out_h, h, src_h, ratio_y, False, dev))
+        rx.append(_axis_weights(out_w, w, src_w, ratio_x, hflip, dev))
+        valid.append(ov)
+    t = torch.bmm(torch.stack(ry), images.float().reshape(b, h, w * c))  # (B, oh, W*C)
+    t = t.reshape(b, out_h, w, c).transpose(1, 2).reshape(b, w, out_h * c)
+    out = torch.bmm(torch.stack(rx), t)  # (B, ow, oh*C)
+    out = out.reshape(b, out_w, out_h, c).transpose(1, 2).contiguous()
+    for img, (ovh, ovw) in zip(out, valid):
+        img[ovh:] = 0.0
+        img[:, ovw:] = 0.0
+    return out, valid

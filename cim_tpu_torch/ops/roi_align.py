@@ -14,6 +14,12 @@ and ``csrc/roi_align_bwd.cu`` (which replace the TPU kernels
 cim_tpu/ops/pallas/roi_align_kernel.py:_fwd_kernel and _bwd_kernel); and
 anything else raises. The rois and the valid extent get no gradient, as
 in cim_tpu.
+
+Features (B, H, W, C) with rois (B, N, 4) and one valid extent per image
+are a batch of images (the counterpart of cim_tpu's vmap over the
+forward): one launch of the forward kernel for the batch, each image's
+output the bits of a call of its own. The batched forward is for
+evaluation and has no backward.
 """
 from __future__ import annotations
 
@@ -27,9 +33,11 @@ from cim_tpu_torch.ops import _build
 
 MAX_GRID = 64  # samples per bin and axis that the CUDA kernels hold (kMaxGrid)
 
-# the forward kernel's channel slices a cell, in bytes (csrc/roi_align_fwd.cu)
+# the forward kernel's channel slices a cell, in bytes, and the images of
+# one launch (csrc/roi_align_fwd.cu: kMaxBatch)
 FWD_MAX_CELL_BYTES = 128
 FWD_MIN_CELL_BYTES = 8
+FWD_MAX_BATCH = 32
 
 # the backward kernel's tiles (csrc/roi_align_bwd.cu)
 BWD_MAX_BINS = 7  # bins per axis its tap tables hold (kMaxR)
@@ -115,6 +123,17 @@ def _valid(height, width, valid_hw):
     return (height, width) if valid_hw is None else (int(valid_hw[0]), int(valid_hw[1]))
 
 
+def _valid_list(batch, height, width, valid_hw):
+    """The valid extent of each image of a batch: valid_hw is None (whole
+    maps) or a sequence of ``batch`` (h, w) pairs."""
+    if valid_hw is None:
+        return [(height, width)] * batch
+    if len(valid_hw) != batch:
+        raise ValueError(f"valid_hw must hold one (h, w) pair per image: {batch} images, "
+                         f"{len(valid_hw)} pairs")
+    return [_valid(height, width, hw) for hw in valid_hw]
+
+
 def roi_align_plain(
     features: torch.Tensor,
     rois: torch.Tensor,
@@ -130,7 +149,16 @@ def roi_align_plain(
     Sums run in float32 whatever the feature dtype, so on bf16 features
     this is the oracle the CUDA kernel is held to. valid_hw: optional
     (h, w) ints, the true extent inside a zero-padded bucket.
+
+    Batched: features (B, H, W, C), rois (B, N, 4) and valid_hw None or B
+    pairs -> (B, N, R, R, C), each image computed as a call of its own.
     """
+    if features.dim() == 4:
+        extents = _valid_list(features.shape[0], features.shape[1], features.shape[2], valid_hw)
+        return torch.stack([
+            roi_align_plain(f, r, output_size, spatial_scale, sampling_ratio,
+                            max_adaptive_grid, hw)
+            for f, r, hw in zip(features, rois, extents)])
     height, width, channels = features.shape
     vh, vw = _valid(height, width, valid_hw)
     n, r = rois.shape[0], output_size
@@ -172,62 +200,61 @@ def roi_align_backward_plain(
     return dfeat.reshape(height, width, channels).to(grad.dtype)
 
 
-# the arguments each kernel takes after the common ones: its scratch, then its plan
-_PLAN_ARGTYPES = {
-    "roi_align_fwd": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int],  # cs, groups, smem
-    "roi_align_bwd": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int],  # splits, smem
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# each launcher's arguments, and the source that holds it
+_LAUNCHERS = {
+    "roi_align_fwd_batched": ("roi_align_fwd", [
+        _PTR, _PTR, _PTR,  # features, rois, out
+        _INT, _INT, _INT, _INT, _INT,  # b, n, h, w, c
+        ctypes.POINTER(_INT), _INT,  # the images' valid extents, r
+        _FLOAT, _INT, _INT,  # scale, sampling_ratio, cap
+        _INT, _PTR,  # dtype code, stream
+        _PTR, _INT, _INT, _INT,  # scratch; plan: cs, groups, smem
+    ]),
+    "roi_align_bwd": ("roi_align_bwd", [
+        _PTR, _PTR, _PTR,  # grad, rois, dF
+        _INT, _INT, _INT, _INT,  # n, h, w, c
+        _INT, _INT, _INT,  # vh, vw, r
+        _FLOAT, _INT, _INT,  # scale, sampling_ratio, cap
+        _INT, _PTR,  # dtype code, stream
+        _PTR, _INT, _INT,  # scratch; plan: splits, smem
+    ]),
 }
 
 
-def _load(name: str):
-    """The launcher of csrc/<name>.cu, built on first use; both kernels
-    take the same arguments, then each its scratch and plan."""
-    fn = getattr(_build.load(name), name)
+@functools.cache
+def _kernel(name: str):
+    """The launcher ``name`` of csrc/roi_align_fwd.cu or roi_align_bwd.cu,
+    built on first use."""
+    source, argtypes = _LAUNCHERS[name]
+    fn = getattr(_build.load(source), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # in, rois, out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, h, w, c
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # vh, vw, r
-        ctypes.c_float, ctypes.c_int, ctypes.c_int,  # scale, sampling_ratio, cap
-        ctypes.c_int, ctypes.c_void_p,  # dtype code, stream
-        *_PLAN_ARGTYPES[name],
-    ]
+    fn.argtypes = argtypes
     return fn
 
 
-_kernel = functools.cache(_load)
-
-
 def _check_cuda_args(what, t, rois, sampling_ratio, max_adaptive_grid, height,
-                     width, valid_hw):
+                     width, extents, lead=()):
+    """Raise on what the kernel does not take: rois lead + (N, 4), lead
+    () for one image or (B,) for a batch, and ``extents`` the valid extent
+    of each image."""
     if t.dtype not in _DTYPE_CODES:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: the tensor must be contiguous")
     if rois.device != t.device or rois.dtype != torch.float32:
         raise ValueError("rois must be float32 on the features' device")
-    if rois.dim() != 2 or rois.shape[1] != 4 or not rois.is_contiguous():
-        raise ValueError(f"rois must be a contiguous (N, 4) tensor, got shape {tuple(rois.shape)}")
+    if tuple(rois.shape[:-2]) != lead or rois.dim() != len(lead) + 2 or rois.shape[-1] != 4 \
+            or not rois.is_contiguous():
+        want = "(N, 4)" if not lead else f"({lead[0]}, N, 4)"
+        raise ValueError(f"rois must be a contiguous {want} tensor, got shape {tuple(rois.shape)}")
     grid = sampling_ratio if sampling_ratio > 0 else max_adaptive_grid
     if not 1 <= grid <= MAX_GRID:
         raise ValueError(f"samples per bin and axis must be in [1, {MAX_GRID}], got {grid}")
-    vh, vw = _valid(height, width, valid_hw)
-    if not (1 <= vh <= height and 1 <= vw <= width):
-        raise ValueError(f"valid_hw {(vh, vw)} outside the feature map {(height, width)}")
-    return vh, vw
-
-
-def _launch(name, src, rois, out, height, width, channels, vh, vw, output_size,
-            spatial_scale, sampling_ratio, max_adaptive_grid, extra=()):
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    err = _kernel(name)(
-        src.data_ptr(), rois.data_ptr(), out.data_ptr(),
-        rois.shape[0], height, width, channels, vh, vw, output_size,
-        float(spatial_scale), int(sampling_ratio), int(max_adaptive_grid),
-        _DTYPE_CODES[src.dtype], stream, *extra,
-    )
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    for vh, vw in extents:
+        if not (1 <= vh <= height and 1 <= vw <= width):
+            raise ValueError(f"valid_hw {(vh, vw)} outside the feature map {(height, width)}")
 
 
 class FwdPlan(NamedTuple):
@@ -240,16 +267,19 @@ class FwdPlan(NamedTuple):
 
 
 def _fwd_plan(vh: int, vw: int, channels: int, elem_bytes: int, smem_bytes: int,
-              sms: int) -> FwdPlan:
+              sms: int, batch: int = 1) -> FwdPlan:
     """The forward kernel's plan for a valid extent (vh, vw) of a map of
     ``channels`` channels of ``elem_bytes`` bytes, on a card with ``sms``
     multiprocessors and ``smem_bytes`` of opt-in shared memory a block.
+    For a batch of images, (vh, vw) is the extent of the most cells among
+    them, and each image has slices x groups blocks of its own.
 
     A block holds a channel slice of every valid cell in shared memory: the
     widest slice, a power of two of FWD_MIN_CELL_BYTES to FWD_MAX_CELL_BYTES
     bytes a cell, that fits, and no wider than the channels need. Slices
     cut the channels; the ROIs are dealt round into groups (ROI n to group
-    n % groups), so that slices x groups blocks fill the card in one wave.
+    n % groups), so that batch x slices x groups blocks fill the card in
+    one wave where the slices leave room.
     A block has 1024 threads, whose registers fill a multiprocessor, so an
     SM runs one block at a time.
     """
@@ -264,8 +294,8 @@ def _fwd_plan(vh: int, vw: int, channels: int, elem_bytes: int, smem_bytes: int,
                          f"{smem} bytes, exceeds the card's {smem_bytes} bytes of shared "
                          f"memory a block")
     slices = -(-channels // cs)
-    groups = max(1, sms // slices)
-    return FwdPlan(cs, groups, slices * groups, smem)
+    groups = max(1, sms // (slices * batch))
+    return FwdPlan(cs, groups, batch * slices * groups, smem)
 
 
 def _fwd_scratch_words(n: int, output_size: int, sampling_ratio: int,
@@ -327,9 +357,11 @@ def _device_limits(device: torch.device):
     return props.shared_memory_per_block_optin, props.multi_processor_count
 
 
-def fwd_launch_plan(vh: int, vw: int, channels: int, dtype: torch.dtype, device) -> FwdPlan:
+def fwd_launch_plan(vh: int, vw: int, channels: int, dtype: torch.dtype, device,
+                    batch: int = 1) -> FwdPlan:
     """:func:`_fwd_plan` for the CUDA device the forward kernel runs on."""
-    return _fwd_plan(vh, vw, channels, _ELEM_BYTES[dtype], *_device_limits(torch.device(device)))
+    return _fwd_plan(vh, vw, channels, _ELEM_BYTES[dtype], *_device_limits(torch.device(device)),
+                     batch)
 
 
 def bwd_launch_plan(height: int, width: int, channels: int, device,
@@ -341,22 +373,46 @@ def bwd_launch_plan(height: int, width: int, channels: int, device,
 
 def _roi_align_cuda(features, rois, output_size, spatial_scale,
                     sampling_ratio, max_adaptive_grid, valid_hw):
-    if features.dim() != 3:
-        raise ValueError(f"features must be an (H, W, C) tensor, got shape {tuple(features.shape)}")
-    height, width, channels = features.shape
-    vh, vw = _check_cuda_args("roi_align_fwd", features, rois, sampling_ratio,
-                              max_adaptive_grid, height, width, valid_hw)
-    plan = fwd_launch_plan(vh, vw, channels, features.dtype, features.device)
-    scratch = torch.empty(_fwd_scratch_words(rois.shape[0], output_size, sampling_ratio,
-                                             max_adaptive_grid),
-                          dtype=torch.int32, device=features.device)
+    """features (B, H, W, C), rois (B, N, 4): one launch of the forward
+    kernel for every FWD_MAX_BATCH images, each counted. One image's
+    (H, W, C) and (N, 4) are the batch of one: the same plan and bits."""
+    if features.dim() not in (3, 4):
+        raise ValueError(f"features must be an (H, W, C) or (B, H, W, C) tensor, "
+                         f"got shape {tuple(features.shape)}")
+    lead = tuple(features.shape[:-3])
+    height, width, channels = features.shape[-3:]
+    if lead:
+        extents = _valid_list(lead[0], height, width, valid_hw)
+    else:
+        extents = [_valid(height, width, valid_hw)]
+    _check_cuda_args("roi_align_fwd", features, rois, sampling_ratio, max_adaptive_grid,
+                     height, width, extents, lead)
+    n = rois.shape[-2]
     # every element is written by the kernel, once, in the features' dtype
-    out = torch.empty((rois.shape[0], output_size, output_size, channels),
+    out = torch.empty(lead + (n, output_size, output_size, channels),
                       dtype=features.dtype, device=features.device)
-    _launch("roi_align_fwd", features, rois, out, height, width, channels, vh, vw,
-            output_size, spatial_scale, sampling_ratio, max_adaptive_grid,
-            extra=(scratch.data_ptr(), plan.cs, plan.groups, plan.smem))
-    roi_align.kernel_launches += 1
+    # bytes an image of features, rois and out: each image's launch starts there
+    steps = (height * width * channels * features.element_size(), n * 4 * 4,
+             n * output_size * output_size * channels * out.element_size())
+    stream = torch.cuda.current_stream(features.device).cuda_stream
+    for b0 in range(0, len(extents), FWD_MAX_BATCH):
+        part = extents[b0:b0 + FWD_MAX_BATCH]
+        plan = fwd_launch_plan(*max(part, key=lambda hw: hw[0] * hw[1]), channels,
+                               features.dtype, features.device, len(part))
+        scratch = torch.empty(_fwd_scratch_words(len(part) * n, output_size, sampling_ratio,
+                                                 max_adaptive_grid),
+                              dtype=torch.int32, device=features.device)
+        err = _kernel("roi_align_fwd_batched")(
+            *(t.data_ptr() + b0 * step for t, step in zip((features, rois, out), steps)),
+            len(part), n, height, width, channels,
+            (ctypes.c_int * (2 * len(part)))(*(v for hw in part for v in hw)),
+            output_size, float(spatial_scale), int(sampling_ratio), int(max_adaptive_grid),
+            _DTYPE_CODES[features.dtype], stream,
+            scratch.data_ptr(), plan.cs, plan.groups, plan.smem,
+        )
+        if err != 0:
+            raise RuntimeError(f"roi_align_fwd kernel launch failed with CUDA error {err}")
+        roi_align.kernel_launches += 1
     return out
 
 
@@ -368,16 +424,23 @@ def _roi_align_backward_cuda(grad, rois, height, width, output_size,
         raise ValueError(f"grad must be (N, R, R, C) = ({n}, {output_size}, "
                          f"{output_size}, C), got {tuple(grad.shape)}")
     grad = grad.contiguous()
-    vh, vw = _check_cuda_args("roi_align_bwd", grad, rois, sampling_ratio,
-                              max_adaptive_grid, height, width, valid_hw)
+    vh, vw = _valid(height, width, valid_hw)
+    _check_cuda_args("roi_align_bwd", grad, rois, sampling_ratio, max_adaptive_grid,
+                     height, width, [(vh, vw)])
     plan = bwd_launch_plan(height, width, channels, grad.device, output_size)
     scratch = torch.empty(_bwd_scratch_words(n, height, width, channels, plan),
                           dtype=torch.int32, device=grad.device)
     # every element is written by the kernel, once, in grad's dtype
     dfeat = torch.empty((height, width, channels), dtype=grad.dtype, device=grad.device)
-    _launch("roi_align_bwd", grad, rois, dfeat, height, width, channels, vh, vw,
-            output_size, spatial_scale, sampling_ratio, max_adaptive_grid,
-            extra=(scratch.data_ptr(), plan.splits, plan.smem))
+    err = _kernel("roi_align_bwd")(
+        grad.data_ptr(), rois.data_ptr(), dfeat.data_ptr(), n, height, width, channels,
+        vh, vw, output_size, float(spatial_scale), int(sampling_ratio),
+        int(max_adaptive_grid), _DTYPE_CODES[grad.dtype],
+        torch.cuda.current_stream(grad.device).cuda_stream,
+        scratch.data_ptr(), plan.splits, plan.smem,
+    )
+    if err != 0:
+        raise RuntimeError(f"roi_align_bwd kernel launch failed with CUDA error {err}")
     roi_align_backward.kernel_launches += 1
     return dfeat
 
@@ -411,25 +474,35 @@ def roi_align_backward(
     return _roi_align_backward_cuda(*args)
 
 
+_NO_BATCHED_GRAD = ("the batched RoIAlign (features (B, H, W, C)) is for evaluation and "
+                    "has no backward: run it under torch.no_grad(), or per image")
+
+
 class RoIAlignFunction(torch.autograd.Function):
     """RoIAlign with its backward: the CUDA kernels on CUDA tensors, the
     plain versions on CPU tensors (counterpart of cim_tpu's custom_vjp
-    around roi_align_pallas). Only the features get a gradient."""
+    around roi_align_pallas). Only the features get a gradient; batched
+    features (B, H, W, C) get none: :func:`roi_align` refuses them where
+    autograd would record the call, and their backward raises."""
 
     @staticmethod
     def forward(ctx, features, rois, output_size, spatial_scale,
                 sampling_ratio, max_adaptive_grid, valid_hw):
-        ctx.save_for_backward(rois)
-        ctx.args = (features.shape[0], features.shape[1], output_size,
-                    spatial_scale, sampling_ratio, max_adaptive_grid, valid_hw)
+        ctx.batched = features.dim() == 4
         args = (features, rois, output_size, spatial_scale, sampling_ratio,
                 max_adaptive_grid, valid_hw)
+        if not ctx.batched:
+            ctx.save_for_backward(rois)
+            ctx.args = (features.shape[0], features.shape[1], output_size,
+                        spatial_scale, sampling_ratio, max_adaptive_grid, valid_hw)
         if features.device.type == "cpu":
             return roi_align_plain(*args)
         return _roi_align_cuda(*args)
 
     @staticmethod
     def backward(ctx, grad):
+        if ctx.batched:
+            raise RuntimeError(_NO_BATCHED_GRAD)
         (rois,) = ctx.saved_tensors
         dfeat = roi_align_backward(grad, rois, *ctx.args) if ctx.needs_input_grad[0] else None
         return dfeat, None, None, None, None, None, None
@@ -445,13 +518,16 @@ def roi_align(
     valid_hw=None,
 ) -> torch.Tensor:
     """RoIAlign: features (H, W, C), rois (N, 4) -> (N, R, R, C), with a
-    gradient for the features.
+    gradient for the features; or, without one, features (B, H, W, C),
+    rois (B, N, 4) and valid_hw None or B (h, w) pairs -> (B, N, R, R, C).
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
     (counted in ``roi_align.kernel_launches`` and
     ``roi_align_backward.kernel_launches``) or raise.
     """
     _device_type(features)
+    if features.dim() == 4 and features.requires_grad and torch.is_grad_enabled():
+        raise ValueError(_NO_BATCHED_GRAD)
     return RoIAlignFunction.apply(features, rois, output_size, spatial_scale,
                                   sampling_ratio, max_adaptive_grid, valid_hw)
 

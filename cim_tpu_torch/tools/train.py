@@ -1,0 +1,378 @@
+"""CIM training CLI on one CUDA card (port of tools/train.py).
+
+    python -m cim_tpu_torch.tools.train --dataset voc2012trainaug \\
+        --cfg configs/resnet50_voc.yaml
+    python -m cim_tpu_torch.tools.train --synthetic --cfg configs/resnet50_voc.yaml \\
+        --max_iter 20                   # smoke run without data on disk
+    python -m cim_tpu_torch.tools.train --device cpu --cfg configs/resnet50_voc.yaml \\
+        --set MODEL.CONV_BODY tiny.conv_body ...   # on the CPU, the tiny body
+
+The reference's training contract, as cim_tpu's CLI keeps it: dataset
+presets, a cfg yaml with --set overrides, LR and step rescaling by the
+effective batch (reference tools/train.py:184-221), gradient accumulation
+(--iter_size), snapshots, and a checkpoint saved on a crash. The loop is
+cim_tpu's one-deep pipeline: it dispatches step i (Trainer.step_async)
+and only then reads and logs step i - 1's metrics, so the host builds and
+dispatches the next step while the card runs this one. Batches of the
+real data path come from data.loader.TrainLoader in pinned host memory.
+
+Ported for one card: TPU.DATA_PARALLEL above 1 and --multihost raise
+(multi-GPU training is not ported yet). Unlike cim_tpu's CLI, a resumed
+run (--load_ckpt --resume) continues the loader's batch sequence where
+the checkpoint left it, so that it reproduces the uninterrupted run.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import pickle
+import re
+import socket
+import time
+import traceback
+
+import numpy as np
+import torch
+
+from cim_tpu_torch.config import assert_and_infer_cfg, cfg_from_file, cfg_from_list, get_default_cfg
+from cim_tpu_torch.engine.checkpoint import load_ckpt, save_ckpt
+from cim_tpu_torch.engine.stats import TrainingStats, setup_logging
+from cim_tpu_torch.engine.train import Trainer, metrics_to_floats
+from cim_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger("cim_tpu_torch.tools.train")
+
+PROFILE_STEPS = (5, 10)  # --profile_dir traces steps [5, 10)
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="Train CIM (PyTorch, one CUDA card)")
+    parser.add_argument("--dataset", help="voc2012trainaug | coco2017train")
+    parser.add_argument("--cfg", dest="cfg_file", required=True)
+    parser.add_argument("--set", dest="set_cfgs", nargs="+", default=None,
+                        help="config key-value pairs")
+    parser.add_argument("--bs", dest="batch_size", type=int, default=None,
+                        help="total images per step across devices")
+    parser.add_argument("--iter_size", type=int, default=4)
+    parser.add_argument("--lr", type=float, default=None)
+    parser.add_argument("--lr_decay_gamma", type=float, default=None,
+                        help="override cfg.SOLVER.GAMMA (reference tools/train.py:95-98)")
+    parser.add_argument("-o", "--optimizer", default=None,
+                        help="override SOLVER.TYPE (SGD | Adam)")
+    parser.add_argument("--max_iter", type=int, default=None)
+    parser.add_argument("--disp_interval", type=int, default=20)
+    parser.add_argument("--output_dir", default=None)
+    parser.add_argument("--load_ckpt", default=None,
+                        help="a checkpoint directory (its latest step) or one model_step<n>.pth")
+    parser.add_argument("--load_detectron", default=None,
+                        help="Detectron-pkl weight file (reference tools/train.py:338-340)")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--no_save", action="store_true")
+    parser.add_argument("--use_tfboard", action="store_true")
+    parser.add_argument("--start_step", type=int, default=0)
+    parser.add_argument("--seed", type=int, default=3)
+    parser.add_argument("--synthetic", action="store_true",
+                        help="train on synthetic fixtures (no data on disk)")
+    parser.add_argument("--synth_image", nargs=2, type=int, default=(256, 256),
+                        help="synthetic image bucket H W")
+    parser.add_argument("--synth_props", type=int, default=512,
+                        help="synthetic proposal pad (bucket size)")
+    parser.add_argument("--synth_valid", type=int, default=300,
+                        help="synthetic valid-proposal count")
+    parser.add_argument("--multihost", action="store_true",
+                        help="multi-host training (not ported: raises)")
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of steps 5-10 there")
+    parser.add_argument("--debug", action="store_true")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the default) or cpu")
+    return parser.parse_args(argv)
+
+
+def rescale_solver(cfg, batch_size: int, iter_size: int):
+    """The reference's rescaling by the effective batch (reference
+    tools/train.py:184-221, cim_tpu tools/train.py:119-130): the LR by the
+    batch per step, the decay steps and MAX_ITER by the images a step
+    against the config's original batch."""
+    original_batch_size = cfg.NUM_GPUS * cfg.TRAIN.IMS_PER_BATCH
+    old_lr = cfg.SOLVER.BASE_LR
+    cfg.SOLVER.BASE_LR *= batch_size / original_batch_size
+    step_scale = original_batch_size / (iter_size * batch_size)
+    cfg.SOLVER.STEPS = [int(s * step_scale + 0.5) for s in cfg.SOLVER.STEPS]
+    cfg.SOLVER.MAX_ITER = int(cfg.SOLVER.MAX_ITER * step_scale + 0.5)
+    logger.info("batch %d x iter_size %d -> LR %g -> %g, MAX_ITER %d, STEPS %s",
+                batch_size, iter_size, old_lr, cfg.SOLVER.BASE_LR,
+                cfg.SOLVER.MAX_ITER, cfg.SOLVER.STEPS)
+
+
+def snapshot_period(cfg, n_devices: int, iter_size: int) -> int:
+    """Steps between snapshots (cim_tpu tools/train.py:256-258)."""
+    return max(1, int(cfg.TRAIN.SNAPSHOT_ITERS / (n_devices * iter_size)))
+
+
+def _checkpoint_location(path: str):
+    """--load_ckpt as (directory, step): a model_step<n>.pth file names its
+    step; a directory means its latest."""
+    m = re.match(r"model_step(\d+)\.pth$", os.path.basename(path))
+    if m and os.path.isfile(path):
+        return os.path.dirname(path), int(m.group(1))
+    return path, None
+
+
+class _TensorBoard:
+    """torch.utils.tensorboard behind the scalar() / close() calls that
+    TrainingStats makes (flax's writer's, in cim_tpu)."""
+
+    def __init__(self, log_dir):
+        from torch.utils.tensorboard import SummaryWriter
+
+        self._writer = SummaryWriter(log_dir)
+
+    def scalar(self, tag, value, step):
+        self._writer.add_scalar(tag, value, step)
+
+    def close(self):
+        self._writer.close()
+
+
+def _configure(args):
+    cfg = get_default_cfg()
+    cfg_from_file(cfg, args.cfg_file)
+    if args.set_cfgs:
+        cfg_from_list(cfg, args.set_cfgs)
+    if args.dataset == "coco2017train":
+        cfg.TRAIN.DATASETS = ("coco_2017_train",)
+        cfg.MODEL.NUM_CLASSES = 80
+    elif args.dataset == "voc2012trainaug":
+        cfg.TRAIN.DATASETS = ("voc_2012_trainaug",)
+        cfg.MODEL.NUM_CLASSES = 20
+    elif args.dataset is not None:
+        raise ValueError(f"Unexpected args.dataset: {args.dataset}")
+    if args.debug:
+        cfg.DEBUG = True
+    if args.multihost or int(cfg.TPU.DATA_PARALLEL or 1) > 1:
+        raise NotImplementedError(
+            "multi-GPU training (--multihost, TPU.DATA_PARALLEL > 1) is not ported yet; "
+            "the port trains on one card"
+        )
+    n_devices = 1
+    cfg.TPU.DATA_PARALLEL = n_devices
+    # --bs rescales the LR and steps as cim_tpu's does; a microbatch is one image
+    batch_size = args.batch_size or n_devices * cfg.TRAIN.IMS_PER_BATCH
+    cfg.TPU.GRAD_ACCUM = args.iter_size
+    rescale_solver(cfg, batch_size, args.iter_size)
+    if args.optimizer is not None:
+        cfg.SOLVER.TYPE = args.optimizer
+    if args.lr is not None:
+        cfg.SOLVER.BASE_LR = args.lr
+    if args.lr_decay_gamma is not None:
+        cfg.SOLVER.GAMMA = args.lr_decay_gamma
+    if args.max_iter is not None:
+        cfg.SOLVER.MAX_ITER = args.max_iter
+    assert_and_infer_cfg(cfg, make_immutable=False)
+    if args.synthetic:
+        cfg.TPU.PROPOSAL_PAD = min(cfg.TPU.PROPOSAL_PAD, args.synth_props)
+    return cfg, n_devices
+
+
+def _data(cfg, args, device, start: int):
+    """(iterator of step batches, the loader or None)."""
+    if args.synthetic:
+        from cim_tpu_torch.data.synthetic import make_train_batch
+
+        rng = np.random.RandomState(args.seed)
+        kw = dict(
+            image_hw=tuple(args.synth_image),
+            n_props=cfg.TPU.PROPOSAL_PAD,
+            n_valid=min(cfg.TPU.PROPOSAL_PAD, args.synth_valid),
+            num_classes=cfg.MODEL.NUM_CLASSES,
+        )
+
+        def batches():
+            while True:
+                batch = make_train_batch(rng, 1, args.iter_size, **kw)
+                yield {k: v[0] for k, v in batch.items()}
+
+        return batches(), None
+    from cim_tpu_torch.data.loader import TrainLoader
+    from cim_tpu_torch.data.roidb import combined_roidb_for_training
+
+    roidb, _, _ = combined_roidb_for_training(cfg)
+    loader = TrainLoader(cfg, roidb, args.iter_size, seed=args.seed,
+                         prefetch=cfg.DATA_LOADER.PREFETCH,
+                         pin_memory=device.type == "cuda", start=start)
+    return iter(loader), loader
+
+
+def _load_weights(trainer, args):
+    if args.load_ckpt:
+        ckpt_dir, step = _checkpoint_location(args.load_ckpt)
+        load_ckpt(ckpt_dir, trainer, step)
+        if not args.resume:
+            trainer.step_count = args.start_step
+        logger.info("Loaded checkpoint; starting at step %d", trainer.step_count)
+    elif args.load_detectron:
+        from cim_tpu_torch.utils.detectron_weights import load_detectron_pkl
+
+        trainer.load_weights(load_detectron_pkl(args.load_detectron))
+        logger.info("Loaded Detectron pkl weights from %s", args.load_detectron)
+
+
+class _Profile:
+    """torch.profiler over a window of steps: the trace goes to
+    <profile_dir>/trace.json, and the card's busy share of the window's
+    wall time to the log and the run's summary."""
+
+    def __init__(self, profile_dir, device):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.dir, self.device = profile_dir, device
+        self.prof = profile(activities=activities)
+        self.prof.__enter__()
+        self.t0 = time.perf_counter()
+
+    def stop(self, steps: int) -> dict:
+        from torch.autograd import DeviceType
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall_ms = 1e3 * (time.perf_counter() - self.t0)
+        self.prof.__exit__(None, None, None)
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, "trace.json")
+        self.prof.export_chrome_trace(path)
+        # kernels and copies only: the cim.* labels also appear as device
+        # ranges, which span idle time
+        busy_ms = sum(e.self_device_time_total for e in self.prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and not e.key.startswith("cim.")) / 1e3
+        out = {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+               "idle_share": 1.0 - busy_ms / wall_ms if wall_ms > 0 else None, "trace": path}
+        logger.info("profiler trace of %d steps written to %s: device busy %.1f of %.1f ms",
+                    steps, path, busy_ms, wall_ms)
+        return out
+
+
+def main(argv=None, profile_steps=PROFILE_STEPS):
+    """Train; profile_steps: the [first, last) steps --profile_dir traces.
+    Returns a summary of the run: its output_dir, the final
+    step, each step's metrics as logged, the steps that wrote a snapshot,
+    host times (the wait for the loader and the loop's time a step, and
+    the loader's build time a batch) and the profile's."""
+    setup_logging()
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg, n_devices = _configure(args)
+
+    trainer = Trainer(cfg, device=device, seed=args.seed,
+                      init_generator=torch.Generator(device=device).manual_seed(args.seed))
+    _load_weights(trainer, args)
+    step = trainer.step_count
+    loader_iter, loader = _data(cfg, args, device, start=step if args.resume else 0)
+
+    # timestamped run dir (reference lib/utils/misc.py get_run_name)
+    run_name = "%s_%s_step" % (time.strftime("%b%d-%H-%M-%S"), socket.gethostname())
+    output_dir = args.output_dir or os.path.join(
+        cfg.OUTPUT_DIR, os.path.splitext(os.path.basename(args.cfg_file))[0], run_name)
+    ckpt_dir = os.path.join(output_dir, "ckpt")
+    do_save = not args.no_save
+    if do_save:
+        os.makedirs(output_dir, exist_ok=True)
+        with open(os.path.join(output_dir, "config_and_args.pkl"), "wb") as f:
+            pickle.dump({"cfg": dict(cfg), "args": vars(args)}, f)
+
+    tb_writer = None
+    if args.use_tfboard and do_save:
+        try:
+            tb_writer = _TensorBoard(output_dir)
+        except Exception as e:  # the tensorboard package may be missing
+            logger.warning("tensorboard writer unavailable: %s", e)
+
+    training_stats = TrainingStats(args.disp_interval, tb_writer)
+    period = snapshot_period(cfg, n_devices, args.iter_size)
+    summary = {"output_dir": output_dir, "metrics": [], "loader_wait_s": [],
+               "loop_s": [], "snapshots": [], "profile": None}
+    saved_at = None
+    profiler = None
+    pending = None  # (step index, device metrics): the one-deep pipeline
+
+    def flush_pending(force=False):
+        """Read and log the previous step's metrics (waits for that step).
+        Shared by the loop, the final flush, the profiler's stop and the
+        crash path (so that the last completed step reaches the logs)."""
+        nonlocal pending
+        if pending is None:
+            return False
+        p_step, p_dev = pending
+        pending = None
+        p_metrics = metrics_to_floats(p_dev)
+        training_stats.update_iter_stats(p_metrics)
+        training_stats.log_iter_stats(p_step, p_metrics["lr"], cfg.SOLVER.MAX_ITER, force=force)
+        summary["metrics"].append((p_step, p_metrics))
+        return True
+
+    def stop_profile():
+        nonlocal profiler
+        flush_pending()  # keep the last step in the trace
+        summary["profile"] = profiler.stop(step - profile_steps[0])
+        profiler = None
+
+    try:
+        logger.info("Training starts!")
+        t_loop = time.perf_counter()
+        while step < cfg.SOLVER.MAX_ITER:
+            if args.profile_dir and step == profile_steps[0] and profiler is None:
+                profiler = _Profile(args.profile_dir, device)
+            if profiler is not None and step >= profile_steps[1]:
+                stop_profile()
+            t0 = time.perf_counter()
+            batch = next(loader_iter)
+            summary["loader_wait_s"].append(time.perf_counter() - t0)
+            training_stats.iter_tic()
+            metrics_dev = trainer.step_async(batch)
+            step += 1
+            # read the previous step's metrics only now, so that the next
+            # batch's host work overlaps this step on the card; the first
+            # step has none to read and its dispatch time is not counted
+            if flush_pending():
+                training_stats.iter_toc()
+            pending = (step - 1, metrics_dev)
+            if do_save and step % period == 0:
+                save_ckpt(ckpt_dir, trainer)
+                saved_at = step
+                summary["snapshots"].append(step)
+            now = time.perf_counter()
+            summary["loop_s"].append(now - t_loop)
+            t_loop = now
+        flush_pending(force=True)  # the last step's metrics
+        if profiler is not None:
+            stop_profile()
+        if do_save and saved_at != step:
+            save_ckpt(ckpt_dir, trainer)
+        logger.info("Training done at step %d", step)
+    except (RuntimeError, KeyboardInterrupt):
+        # crash-save (reference tools/train.py:450-456), after the pending
+        # metrics: the last completed step's state is what is saved
+        try:
+            flush_pending(force=True)
+        except Exception:  # the read itself may be what failed
+            logger.warning("pending metrics unrecoverable on crash")
+        logger.info("Save ckpt on exception ...")
+        if do_save:
+            save_ckpt(ckpt_dir, trainer)
+        print(traceback.format_exc())
+    finally:
+        if tb_writer is not None:
+            tb_writer.close()
+        if loader is not None:
+            loader.close()
+            summary["loader_build_s"] = list(loader.build_seconds)
+    summary["step"] = trainer.step_count
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -27,7 +27,9 @@ and ``b2b``, CUDA events around 20 calls made back to back, divided by 20
 (the median of 3 such runs), which hides the host's time per call. The
 card's nvidia-smi name and power limit come first, and the sums over an
 eval image's 10 passes last. The patched builds give wrong sums by design;
-the others are held to the plain version as chip_smoke.py holds them.
+the others are held to the plain version as chip_smoke.py holds them,
+and each line of a ``--against`` build of this interface says whether its
+output has the bits of the kernel's on the same inputs.
 """
 from __future__ import annotations
 
@@ -64,6 +66,20 @@ PATCHES = {
          f"load_vec<T, VB>(row + {_LANE_CELL.format(u='u')}, v);"),
     ],
 }
+
+
+# the arguments of roi_align_fwd, the one-image launcher of every build;
+# the first 15 are those of the older interface
+_I, _P = ctypes.c_int, ctypes.c_void_p
+FWD_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P,
+                _P, _I, _I, _I]
+
+
+def _single(lib: ctypes.CDLL):
+    fn = lib.roi_align_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = FWD_ARGTYPES
+    return fn
 
 
 def _nvcc(src: str, out_name: str) -> ctypes.CDLL:
@@ -136,7 +152,7 @@ def main():
         raise SystemExit("needs a CUDA device")
     print(f"[card] {cs.card_line()}", flush=True)
 
-    argtypes = ra._kernel("roi_align_fwd").argtypes  # builds the package's kernel
+    kernel = _single(_build.load("roi_align_fwd"))  # builds the package's kernel
     jobs = {name: (_patched(name), f"roi_align_fwd_bench_{name}.so") for name in PATCHES}
     older, plain_iface = [], set()
     for d in args.against:
@@ -149,11 +165,11 @@ def main():
         older.append(name)
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda job: _nvcc(*job), jobs.values())))
-    fns = {"kernel": ra._kernel("roi_align_fwd")}
+    fns = {"kernel": kernel}
     for name, lib in libs.items():
-        fns[name] = lib.roi_align_fwd
-        fns[name].restype = ctypes.c_int
-        fns[name].argtypes = argtypes[:15] if name in plain_iface else argtypes
+        fns[name] = _single(lib)
+        if name in plain_iface:
+            fns[name].argtypes = FWD_ARGTYPES[:15]
 
     def run(name, feat, rois, shape, valid, scale, sr, cap):
         h, w, c = shape
@@ -185,17 +201,21 @@ def main():
             cs.BF16_REL * feat.float().abs().max().item()
         plan = ra.fwd_launch_plan(*valid, shape[2], dtype, feat.device)
         seen = {}
+        mine = run("kernel", *inputs)
         for name in order:
             out = run(name, *inputs)
             torch.cuda.synchronize()
             err = (out.float() - plain.float()).abs().max().item()
             if name not in PATCHES and err > tol:
                 raise RuntimeError(f"{case} {name}: max_abs_err {err} above {tol}")
+            bits = "" if name in PATCHES or name in plain_iface or name == "kernel" else \
+                f", the kernel's bits: {'yes' if torch.equal(out, mine) else 'no'}"
             one = cs.cuda_ms(lambda: run(name, *inputs), 20)
             b2b = back_to_back_ms(lambda: run(name, *inputs))
             seen.setdefault(name, []).append((one, b2b))
             print(f"[bench] {case}: {name} one {one:.4f} ms, b2b {b2b:.4f} ms "
-                  f"(max_abs_err {err:.3g}, bound {tol:.3g}); plan {plan._asdict()}", flush=True)
+                  f"(max_abs_err {err:.3g}, bound {tol:.3g}{bits}); plan {plan._asdict()}",
+                  flush=True)
         if args.profile:
             for name in fns:
                 _profile(case, name, lambda: run(name, *inputs))
@@ -203,7 +223,7 @@ def main():
             for name, sums in image.items():
                 sums["one"] += 2 * float(np.median([t[0] for t in seen[name]]))
                 sums["b2b"] += 2 * float(np.median([t[1] for t in seen[name]]))
-        del feat, rois, plain, out
+        del feat, rois, plain, out, mine
     print("[bench] per eval image (10 passes, bf16, medians of each build's runs): " + ", ".join(
         f"{name} one {t['one']:.4f} ms, b2b {t['b2b']:.4f} ms" for name, t in image.items()),
         flush=True)

@@ -13,7 +13,10 @@ cap 4, drawn by ``chip_smoke._roi_case`` from ``chip_smoke.SEED``). It
 prints the host's time a call, from the call to its return (the plan, the
 allocations and the launches; the card runs behind), as perf_counter around
 50 calls made back to back, the median of 5 such runs; beside it the
-card's time of one call as ``chip_smoke.cuda_ms`` takes it.
+card's time of one call as ``chip_smoke.cuda_ms`` takes it. Where the
+checkout's roi_align takes a batch of images (``FWD_MAX_BATCH``), it does
+the same for a stack of 8 such maps with differing valid extents, as the
+batched eval path calls it.
 """
 from __future__ import annotations
 
@@ -33,9 +36,25 @@ def child(root: str):
     import chip_smoke as cs
     from cim_tpu_torch.ops import roi_align as ra
 
-    feat, rois = cs._roi_case(np.random.RandomState(cs.SEED), cs.EVAL_FEAT, cs.EVAL_VALID,
-                              1 / 16, 2048, torch.bfloat16)
-    args = (feat, rois, 7, 1 / 16, 0, 4, cs.EVAL_VALID)
+    rng = np.random.RandomState(cs.SEED)
+    feat, rois = cs._roi_case(rng, cs.EVAL_FEAT, cs.EVAL_VALID, 1 / 16, 2048, torch.bfloat16)
+    time_calls(root, ra, "", (feat, rois, 7, 1 / 16, 0, 4, cs.EVAL_VALID))
+    if hasattr(ra, "FWD_MAX_BATCH"):
+        extents = cs.ROI_ALIGN_BATCHED_CASES[0][1]
+        cases = [cs._roi_case(rng, cs.EVAL_FEAT, hw, 1 / 16, 2048, torch.bfloat16)
+                 for hw in extents]
+        feat = torch.stack([f for f, _ in cases]).contiguous()
+        rois = torch.stack([r for _, r in cases]).contiguous()
+        time_calls(root, ra, f" (a stack of {len(extents)})",
+                   (feat, rois, 7, 1 / 16, 0, 4, extents))
+
+
+def time_calls(root, ra, what, args):
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+
     with torch.no_grad():
         launches = ra.roi_align.kernel_launches
         for _ in range(3):
@@ -52,7 +71,7 @@ def child(root: str):
             host.append((time.perf_counter() - t0) / CALLS)
             torch.cuda.synchronize()
         one_ms = cs.cuda_ms(lambda: ra.roi_align(*args), 20)
-    print(f"[host] {root}: roi_align of {os.path.relpath(ra.__file__, root)}: host "
+    print(f"[host] {root}: roi_align{what} of {os.path.relpath(ra.__file__, root)}: host "
           f"{1e6 * float(np.median(host)):.1f} us a call (runs {[round(1e6 * h, 1) for h in host]}), "
           f"card {one_ms:.4f} ms one call", flush=True)
 

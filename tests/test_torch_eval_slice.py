@@ -126,13 +126,3 @@ def test_single_pass_matches_jax(runs, transform_mode):
     got, _ = evaluator.im_detect_all(im, boxes, masks)
     assert got.shape == want.shape == (N_PROPS, 20)
     np.testing.assert_allclose(got, want, **SCORE_TOL)
-
-
-def test_batched_eval_not_ported(runs):
-    cfg, model, _, _, _ = runs
-    cfg.TPU.EVAL_BATCH = 8
-    try:
-        with pytest.raises(NotImplementedError, match="EVAL_BATCH"):
-            torch_engine.run_inference(cfg, model, os.path.join(cfg.DATA_DIR, "b8"), device="cpu")
-    finally:
-        cfg.TPU.EVAL_BATCH = 1

@@ -70,8 +70,8 @@ def init_variables(cfg, seed: int = 0):
 def torch_model(cfg, variables):
     """The port's CIMModel on the CPU with ``variables`` loaded."""
     model = build_torch_model(cfg, device="cpu")
-    model.load_state_dict(state_dict_from_jax(variables, refine_times=cfg.REFINE_TIMES),
-                          strict=True)
+    model.load_state_dict(state_dict_from_jax(variables, conv_body=cfg.MODEL.CONV_BODY,
+                                              refine_times=cfg.REFINE_TIMES), strict=True)
     return model
 
 
