@@ -56,9 +56,23 @@ of which fails the run:
                    against the uninterrupted trainer
   train_cli        the training CLI (cim_tpu_torch.tools.train main()) at
                    full width on an on-disk set of 8 375x500 JPEGs with
-                   2000 proposals read by TrainLoader: 6 steps at
+                   2000 proposals read by TrainLoader (their full-size
+                   masks also written as COB .mat files): 6 steps at
                    iter_size 4, snapshots every 3; then a run resumed from
                    the step-3 snapshot against steps 4-6 of the first
+  eval_cli         the eval CLIs' main() in turn, from the train CLI's
+                   step-6 snapshot over the same 8 images: test_net at the
+                   shipped EVAL_BATCH 8 (one stack: 10 forward launches,
+                   no backward; the model equal to the checkpoint's;
+                   detections.pkl and box AP), again with --corloc (VOC
+                   devkit, discovery.pkl and CorLoc); evaluation with
+                   --cob_dir and 2 workers (instance-seg mAP, every result
+                   a proposal's .mat mask); the Mask R-CNN pseudo-label
+                   export with --cob_dir from discovery.pkl (every
+                   annotation a proposal's .mat mask), change_mask_thr at
+                   0.3 and visualize_results on 2 images; the CLIs' times
+                   (45-55 s of the whole run's 210-250 s of command time
+                   on an H100, the .mat files' 36-45 s write in train_cli)
 
 With --profile, one more training step (scale 1200, 2048 proposals) runs
 under torch.profiler and its device time by operator, by phase
@@ -76,6 +90,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
 import subprocess
 import tempfile
 import time
@@ -108,7 +123,13 @@ from cim_tpu_torch.ops.roi_align import (
     roi_align_backward_plain,
     roi_align_plain,
 )
+from cim_tpu_torch.evaluation import rle as rle_util
+from cim_tpu_torch.tools import change_mask_thr
+from cim_tpu_torch.tools import evaluation as eval_cli
+from cim_tpu_torch.tools import generate_mask_for_MaskRCNN as export_cli
+from cim_tpu_torch.tools import test_net as test_net_cli
 from cim_tpu_torch.tools import train as train_cli
+from cim_tpu_torch.tools import visualize_results
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -1007,10 +1028,15 @@ def phase_train_cli(work_dir, card, profile=False):
     data_dir = os.path.join(work_dir, "train_cli")
     paths = write_synthetic_train_dataset(data_dir, CLI_IMAGES, N_PROPS,
                                           np.random.RandomState(SEED + 6), image_hw=IMAGE_HW,
-                                          iou_fn=_iou_on_card)
+                                          iou_fn=_iou_on_card,
+                                          cob_dir=os.path.join(data_dir, "cob"))
     catalog.register_dataset("chip_smoke_train", {catalog.IM_DIR: paths["image_dir"],
                                                   catalog.ANN_FN: paths["ann"]})
     write_s = time.perf_counter() - t0
+    log(f"[train_cli] on-disk set of {CLI_IMAGES} images written in {write_s:.1f} s, of which "
+        f"each image's {N_PROPS} full-size masks as a compressed COB .mat "
+        f"{np.mean(paths['cob_write_s']):.3f} s a file in 4 threads (each "
+        f"{[round(t, 3) for t in paths['cob_write_s']]})")
     accum = 4
     flags = ["--cfg", os.path.join(REPO, "configs", "resnet50_voc.yaml"), "--device", "cuda",
              "--iter_size", str(accum), "--disp_interval", "1", "--seed", str(SEED), "--set",
@@ -1070,7 +1096,181 @@ def phase_train_cli(work_dir, card, profile=False):
     log(f"[train_cli] resumed from {os.path.basename(snapshot)}: steps {CLI_SNAPSHOT}-"
         f"{CLI_STEPS - 1} give the uninterrupted run's metrics (worst relative difference "
         f"{worst:.3g}); total_loss {[round(m['total_loss'], 6) for _, m in resumed['metrics']]}")
-    return fwd, bwd
+    return fwd, bwd, paths, os.path.join(out, "ckpt")
+
+
+def _is_proposal_mask(segm, masks, boxes) -> bool:
+    """Whether an RLE decodes to the mask of a proposal whose box is its
+    bounding box (the synthetic proposals' boxes are their masks' tight
+    boxes, inclusive)."""
+    x, y, w, h = rle_util.to_bbox(segm)
+    cand = np.nonzero((boxes[:, 0] == x) & (boxes[:, 1] == y) & (boxes[:, 2] == x + w - 1)
+                      & (boxes[:, 3] == y + h - 1))[0]
+    dec = rle_util.decode(segm)
+    return any(np.array_equal(dec, masks[i]) for i in cand)
+
+
+def _every_class_present(ann_path) -> str:
+    """A copy of a set's annotation file in which every image holds an
+    object of every class (the class's box and mask those of the image's
+    first object). The exporter keeps an image's top 100 detections over
+    all classes, then those of its gt classes only; under random weights
+    the set's own two gt classes an image can miss the top 100 and leave
+    nothing to export; with every class present it keeps the top 100."""
+    with open(ann_path) as f:
+        ann = json.load(f)
+    first = {}
+    for a in ann["annotations"]:
+        first.setdefault(a["image_id"], a)
+    present = {(a["image_id"], a["category_id"]) for a in ann["annotations"]}
+    for image_id, a in first.items():
+        for c in ann["categories"]:
+            if (image_id, c["id"]) not in present:
+                ann["annotations"].append(dict(a, id=len(ann["annotations"]) + 1,
+                                               category_id=c["id"]))
+    path = ann_path[:-len(".json")] + "_every_class.json"
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path
+
+
+def phase_eval_cli(work_dir, card, paths, ckpt_dir):
+    """The eval CLIs through their main(), from the train CLI's last
+    snapshot over its on-disk set of CLI_IMAGES images: test_net at the
+    shipped EVAL_BATCH (one stack), test_net --corloc on the set
+    registered as voc_2012_trainaug (the preset name the exporter reads,
+    with the set's VOC devkit, every class present in every image),
+    evaluation with --cob_dir, the pseudo-label
+    export with --cob_dir, change_mask_thr and visualize_results. Returns
+    the forward kernel's launches of the two test_net runs."""
+    data_dir = os.path.dirname(paths["ann"])
+    catalog.register_dataset("voc_2012_trainaug", {
+        catalog.IM_DIR: paths["image_dir"], catalog.ANN_FN: _every_class_present(paths["ann"]),
+        catalog.DEVKIT_DIR: paths["devkit_dir"]})
+    yaml = os.path.join(REPO, "configs", "resnet50_voc.yaml")
+    data = ["TEST.PROPOSAL_FILES", f"('{paths['props']}',)", "DATA_DIR", data_dir]
+    flags = ["--cfg", yaml, "--device", "cuda", "--load_ckpt", ckpt_dir, "--set",
+             "TPU.PALLAS_ROI_ALIGN", "True", "TPU.PRECISION", "bf16_compute", *data]
+    out = os.path.join(work_dir, "eval_cli")
+    passes = len(Evaluator.tta_pass_list(load_cfg(yaml)))
+
+    roi_align.kernel_launches = 0
+    roi_align_backward.kernel_launches = 0
+    t0 = time.perf_counter()
+    run = test_net_cli.main(flags + ["TEST.DATASETS", "('chip_smoke_train',)",
+                                     "--output_dir", os.path.join(out, "test")])
+    test_s = time.perf_counter() - t0
+    fwd_test = roi_align.kernel_launches
+    check(fwd_test == passes, f"{fwd_test} forward launches for one stack of {CLI_IMAGES} x "
+          f"{passes} passes")
+    check(roi_align_backward.kernel_launches == 0, "test_net launches no backward kernel")
+    check(run["step"] == CLI_STEPS, f"test_net loaded step {run['step']}")
+    saved = torch.load(os.path.join(ckpt_dir, f"model_step{CLI_STEPS}.pth"), map_location="cpu",
+                       weights_only=True)["model"]
+    state = run["model"].state_dict()
+    check(state.keys() == saved.keys() and all(torch.equal(state[k].cpu(), v)
+                                               for k, v in saved.items()),
+          "the evaluated model's tensors equal the checkpoint's")
+    with open(run["det_file"], "rb") as f:
+        dets = pickle.load(f)
+    check(len(dets) == CLI_IMAGES, f"{len(dets)} records in detections.pkl")
+    for name, rec in dets.items():
+        s = rec["scores"]
+        check(set(rec) == {"scores", "boxes"}, f"{name}: the pickle holds scores and boxes only")
+        check(s.shape == (N_PROPS, 20), f"{name}: scores shape {s.shape}")
+        check(np.isfinite(s).all() and s.min() >= 0.0 and s.max() <= 1.0,
+              f"{name}: scores finite in [0, 1]")
+    res = run["results"]
+    check(np.isfinite(res["AP"]) and np.isfinite(res["AP50"]), "finite box AP")
+    n_dets = sum(len(d) for per_class in run["all_boxes"][1:] for d in per_class)
+    check(n_dets > 0, "test_net kept detections")
+    run_s = run["seconds"]
+    del run, state, saved
+
+    t0 = time.perf_counter()
+    corloc = test_net_cli.main(flags + ["TEST.DATASETS", "('voc_2012_trainaug',)", "--corloc",
+                                        "--output_dir", os.path.join(out, "corloc")])
+    corloc_s = time.perf_counter() - t0
+    fwd = roi_align.kernel_launches
+    check(fwd == 2 * passes, f"{fwd - fwd_test} forward launches in the --corloc run")
+    check(roi_align_backward.kernel_launches == 0, "test_net launches no backward kernel")
+    check(os.path.basename(corloc["det_file"]) == "discovery.pkl"
+          and os.path.exists(corloc["det_file"]), "--corloc writes discovery.pkl")
+    corloc_value = corloc["results"]["CorLoc"]
+    check(np.isfinite(corloc_value), "finite CorLoc")
+    discovery = corloc["det_file"]
+    del corloc
+
+    cob = {}  # image id -> (its .mat masks, its proposal boxes)
+    with open(paths["props"], "rb") as f:
+        props = pickle.load(f)
+    load_s = []
+    for image_id, boxes in zip(props["indexes"], props["boxes"]):
+        t0 = time.perf_counter()
+        cob[image_id] = (eval_cli.load_cob_masks(paths["cob_dir"], {"id": image_id}), boxes)
+        load_s.append(time.perf_counter() - t0)
+        check(len(cob[image_id][0]) == N_PROPS, f"image {image_id}: {N_PROPS} .mat masks")
+
+    t0 = time.perf_counter()
+    metrics = eval_cli.main(["--cfg", yaml, "--result_path", os.path.join(out, "test", "detections.pkl"),
+                             "--dataset", "chip_smoke_train", "--cob_dir", paths["cob_dir"],
+                             "--nprocs", "2", "--output_dir", os.path.join(out, "segm"), "--set",
+                             "TEST.DATASETS", "('chip_smoke_train',)", *data])
+    eval_s = time.perf_counter() - t0
+    for t in (25, 50, 70, 75):
+        v = metrics[f"mAP{t}"]
+        check(np.isfinite(v) and 0.0 <= v <= 1.0, f"mAP{t} {v} finite in [0, 1]")
+    with open(os.path.join(out, "segm", "segm_results.json")) as f:
+        segm = json.load(f)
+    check(len(segm) > 0, "evaluation wrote segm results")
+    for r in segm:
+        check(_is_proposal_mask(r["segmentation"], *cob[r["image_id"]]),
+              f"a segm result of image {r['image_id']} is a proposal's .mat mask")
+
+    t0 = time.perf_counter()
+    labels = export_cli.main(["--cfg", yaml, "--result_path", discovery, "--cob_dir",
+                              paths["cob_dir"], "--nprocs", "2", "--output_dir",
+                              os.path.join(out, "pseudo"), "--set", *data[2:],
+                              "TRAIN.PROPOSAL_FILES", f"('{paths['props']}',)"])
+    export_s = time.perf_counter() - t0
+    with open(labels) as f:
+        exported = json.load(f)
+    anns = exported["annotations"]
+    check(len(exported["images"]) == CLI_IMAGES and len(anns) > 0,
+          f"{len(exported['images'])} images, {len(anns)} pseudo labels")
+    for a in anns:
+        check(_is_proposal_mask(a["segmentation"], *cob[a["image_id"]]),
+              f"a pseudo label of image {a['image_id']} is a proposal's .mat mask")
+    thr_path = change_mask_thr.main(["--input", labels, "--thr", "0.3"])
+    with open(thr_path) as f:
+        kept = json.load(f)
+    want = [a for a in anns if a["score"] >= 0.3]
+    check([a["id"] for a in kept["annotations"]] == list(range(1, len(want) + 1))
+          and [a["segmentation"] for a in kept["annotations"]] == [a["segmentation"] for a in want]
+          and kept["images"] == exported["images"],
+          f"change_mask_thr kept {len(kept['annotations'])} of {len(anns)} (score >= 0.3: "
+          f"{len(want)}), renumbered, every image")
+    vis_dir = os.path.join(out, "vis")
+    drawn = visualize_results.main(["--result_file", os.path.join(out, "segm", "segm_results.json"),
+                                    "--image_dir", paths["image_dir"], "--save_dir", vis_dir,
+                                    "--max_images", "2", "--score_thr", "0"])
+    check(drawn == 2 and len(os.listdir(vis_dir)) == 2, f"visualize_results drew {drawn} images")
+
+    log(f"[eval_cli] {card}: test_net from the step-{CLI_STEPS} snapshot, {CLI_IMAGES} images at "
+        f"EVAL_BATCH {EVAL_BATCH}: {test_s:.3f} s end to end, of it model build and checkpoint "
+        f"load {run_s['load']:.3f} s, the evaluator {run_s['evaluator']:.3f} s "
+        f"({run_s['evaluator'] / CLI_IMAGES:.4f} s/image), the rest of run_inference (image "
+        f"reads, pickle, NMS, COCO box eval) {run_s['inference'] - run_s['evaluator']:.3f} s; "
+        f"--corloc run {corloc_s:.3f} s; evaluation CLI (--cob_dir, 2 workers) "
+        f"{eval_s / CLI_IMAGES:.4f} s/image ({eval_s:.3f} s); export CLI (--cob_dir, 2 workers) "
+        f"{export_s / CLI_IMAGES:.4f} s/image ({export_s:.3f} s); a COB .mat of {N_PROPS} "
+        f"{IMAGE_HW[0]}x{IMAGE_HW[1]} masks: write {np.mean(paths['cob_write_s']):.3f} s (4 "
+        f"threads), load {np.mean(load_s):.3f} s (each {[round(t, 3) for t in load_s]})")
+    log(f"[eval_cli] forward launches {fwd_test} + {fwd - fwd_test}, backward 0; box AP "
+        f"{res['AP']:.4f}, CorLoc {corloc_value:.4f}; {len(segm)} segm results, mAP25/50/70/75 "
+        f"{[round(metrics[f'mAP{t}'], 4) for t in (25, 50, 70, 75)]}; {len(anns)} pseudo labels, "
+        f"{len(want)} at score >= 0.3 (random weights)")
+    return fwd
 
 
 def main():
@@ -1099,7 +1299,12 @@ def main():
         del evaluator
         phase_train_reference()
         train_fwd, train_bwd = phase_train(card, work_dir, profile=args.profile)
-        cli_fwd, cli_bwd = phase_train_cli(work_dir, card, profile=args.profile)
+        cli_fwd, cli_bwd, cli_paths, cli_ckpt = phase_train_cli(work_dir, card,
+                                                                profile=args.profile)
+        roi_align.kernel_launches = 0
+        roi_align_backward.kernel_launches = 0
+        eval_cli_fwd = phase_eval_cli(work_dir, card, cli_paths, cli_ckpt)
+        eval_cli_bwd = roi_align_backward.kernel_launches
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -1111,7 +1316,8 @@ def main():
             "replaces": "cim_tpu/ops/pallas/roi_align_kernel.py:151",
             "launches": train_fwd,
             "launches_by_path": {"eval": eval_launches, "eval_batched": batched_launches,
-                                 "train": train_fwd, "train_cli": cli_fwd},
+                                 "train": train_fwd, "train_cli": cli_fwd,
+                                 "eval_cli": eval_cli_fwd},
             **fwd_kernel,
         },
         {
@@ -1121,7 +1327,7 @@ def main():
             "replaces": "cim_tpu/ops/pallas/roi_align_kernel.py:169",
             "launches": train_bwd,
             "launches_by_path": {"eval": 0, "eval_batched": 0, "train": train_bwd,
-                                 "train_cli": cli_bwd},
+                                 "train_cli": cli_bwd, "eval_cli": eval_cli_bwd},
             **bwd_kernel,
         },
     ]}))

@@ -152,63 +152,112 @@ def make_train_batch(rng, n_devices, grad_accum, **kw):
     return out
 
 
+def _save_cob_mat(path, masks):
+    """Write (n, h, w) bool masks as a COB file holds them: a compressed
+    cell array ``maskmat`` of n x 1 uint8 masks. Returns the seconds taken."""
+    import time
+
+    from scipy.io import savemat
+
+    t0 = time.perf_counter()
+    cell = np.empty((len(masks), 1), object)
+    for i, m in enumerate(masks):
+        cell[i, 0] = m.view(np.uint8)
+    savemat(path, {"maskmat": cell}, do_compression=True)
+    return time.perf_counter() - t0
+
+
 def write_synthetic_train_dataset(data_dir, n_images, n_props, rng, image_hw=(96, 128),
-                                  n_categories=20, iou_fn=None):
+                                  n_categories=20, iou_fn=None, cob_dir=None):
     """On-disk synthetic training set, as the real training path reads it:
     per image a JPEG, ``n_props`` COB-style mask proposals (boxes, 7x7
     rasterizations and scores in props.pkl), a PCL cluster matrix
     (label_assign.pkl) and its IoU and asymmetric-IoU matrices as float16
     pickles (iou/, asy/), and in ann.json two gt objects an image, whose
-    classes are its image-level labels. iou_fn(masks (n, h, w) bool) ->
-    (iou, asy) float arrays; by default mask_matrices on the host (an
-    O(n^2 h w) product: pass one that runs on a card at full size).
-    Returns {image_dir, ann, props, label_assign, iou_dir, asy_iou_dir}."""
+    classes are its image-level labels. Images have VOC ids and names
+    (2012000001 is 2012_000001.jpg), and a VOC devkit of the same gt
+    (devkit/VOC2012: Annotations/*.xml, ImageSets/Main/trainaug.txt) serves
+    the CorLoc protocol of a set registered as voc_2012_trainaug. With
+    ``cob_dir``, each image's full-resolution proposal masks also go there
+    as a compressed .mat named by the VOC scheme of tools/evaluation.py
+    (2012_000001.mat, maskmat[:, 0]), written in threads while the next
+    image is drawn. iou_fn(masks (n, h, w) bool) -> (iou, asy) float
+    arrays; by default mask_matrices on the host (an O(n^2 h w) product:
+    pass one that runs on a card at full size). Returns {image_dir, ann,
+    props, label_assign, iou_dir, asy_iou_dir, devkit_dir, cob_dir,
+    cob_write_s (the seconds of each .mat write)}."""
     import json
     import os
     import pickle
+    from concurrent.futures import ThreadPoolExecutor
 
     import cv2
 
+    from cim_tpu_torch.data.voc_meta import classes_for
     from cim_tpu_torch.evaluation import rle as rle_util
 
     iou_fn = iou_fn or mask_matrices
     paths = {"image_dir": os.path.join(data_dir, "images"), "ann": os.path.join(data_dir, "ann.json"),
              "props": os.path.join(data_dir, "props.pkl"),
              "label_assign": os.path.join(data_dir, "label_assign.pkl"),
-             "iou_dir": os.path.join(data_dir, "iou"), "asy_iou_dir": os.path.join(data_dir, "asy")}
-    for d in (paths["image_dir"], paths["iou_dir"], paths["asy_iou_dir"]):
-        os.makedirs(d, exist_ok=True)
+             "iou_dir": os.path.join(data_dir, "iou"), "asy_iou_dir": os.path.join(data_dir, "asy"),
+             "devkit_dir": os.path.join(data_dir, "devkit"), "cob_dir": cob_dir}
+    voc_dir = os.path.join(paths["devkit_dir"], "VOC2012")
+    for d in (paths["image_dir"], paths["iou_dir"], paths["asy_iou_dir"], cob_dir,
+              os.path.join(voc_dir, "Annotations"), os.path.join(voc_dir, "ImageSets", "Main")):
+        if d is not None:
+            os.makedirs(d, exist_ok=True)
     h, w = image_hw
-    images, annotations = [], []
+    class_names = classes_for(n_categories)
+    images, annotations, names = [], [], []
     prop = {"indexes": [], "boxes": [], "masks": [], "scores": []}
     mats = {"indexes": [], "mat": []}
-    for i in range(n_images):
-        name = f"{i:06d}"
-        cv2.imwrite(os.path.join(paths["image_dir"], name + ".jpg"),
-                    (rng.rand(h, w, 3) * 255).astype(np.uint8))
-        images.append({"id": i + 1, "width": w, "height": h, "file_name": name + ".jpg"})
-        masks, boxes = synthetic_masks(rng, n_props, h, w)
-        iou, asy = iou_fn(masks)
-        for d, m in ((paths["iou_dir"], iou), (paths["asy_iou_dir"], asy)):
-            with open(os.path.join(d, name + ".pkl"), "wb") as f:
-                pickle.dump(np.asarray(m, np.float16), f)
-        prop["indexes"].append(i + 1)
-        prop["boxes"].append(boxes)
-        prop["masks"].append(masks_to_7x7(masks, boxes).astype(np.float32))
-        prop["scores"].append(rng.rand(n_props).astype(np.float32))
-        mat = np.zeros((n_props, n_categories + 1), np.float32)
-        mat[0, int(rng.randint(0, 3)) + 1] = 1
-        mats["indexes"].append(i + 1)
-        mats["mat"].append(mat)
-        for j in range(2):
-            b = boxes[j]
-            annotations.append({
-                "id": len(annotations) + 1, "image_id": i + 1,
-                "category_id": (i + j) % n_categories + 1,
-                "bbox": [float(b[0]), float(b[1]), float(b[2] - b[0] + 1), float(b[3] - b[1] + 1)],
-                "segmentation": rle_util.encode(masks[j].astype(np.uint8)),
-                "area": float(masks[j].sum()), "iscrowd": 0,
-            })
+    writes = []
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for i in range(n_images):
+            image_id = 2012000001 + i
+            name = f"2012_{i + 1:06d}"
+            names.append(name)
+            cv2.imwrite(os.path.join(paths["image_dir"], name + ".jpg"),
+                        (rng.rand(h, w, 3) * 255).astype(np.uint8))
+            images.append({"id": image_id, "width": w, "height": h, "file_name": name + ".jpg"})
+            masks, boxes = synthetic_masks(rng, n_props, h, w)
+            if cob_dir is not None:
+                writes.append(pool.submit(_save_cob_mat, os.path.join(cob_dir, name + ".mat"),
+                                          masks))
+            iou, asy = iou_fn(masks)
+            for d, m in ((paths["iou_dir"], iou), (paths["asy_iou_dir"], asy)):
+                with open(os.path.join(d, name + ".pkl"), "wb") as f:
+                    pickle.dump(np.asarray(m, np.float16), f)
+            prop["indexes"].append(image_id)
+            prop["boxes"].append(boxes)
+            prop["masks"].append(masks_to_7x7(masks, boxes).astype(np.float32))
+            prop["scores"].append(rng.rand(n_props).astype(np.float32))
+            mat = np.zeros((n_props, n_categories + 1), np.float32)
+            mat[0, int(rng.randint(0, 3)) + 1] = 1
+            mats["indexes"].append(image_id)
+            mats["mat"].append(mat)
+            objs = []
+            for j in range(2):
+                b = boxes[j]
+                cat = (i + j) % n_categories + 1
+                annotations.append({
+                    "id": len(annotations) + 1, "image_id": image_id, "category_id": cat,
+                    "bbox": [float(b[0]), float(b[1]), float(b[2] - b[0] + 1),
+                             float(b[3] - b[1] + 1)],
+                    "segmentation": rle_util.encode(masks[j].astype(np.uint8)),
+                    "area": float(masks[j].sum()), "iscrowd": 0,
+                })
+                # VOC xml boxes are 1-based
+                objs.append(f"<object><name>{class_names[cat - 1]}</name><difficult>0</difficult>"
+                            f"<bndbox><xmin>{b[0] + 1:.0f}</xmin><ymin>{b[1] + 1:.0f}</ymin>"
+                            f"<xmax>{b[2] + 1:.0f}</xmax><ymax>{b[3] + 1:.0f}</ymax>"
+                            "</bndbox></object>")
+            with open(os.path.join(voc_dir, "Annotations", name + ".xml"), "w") as f:
+                f.write("<annotation>" + "".join(objs) + "</annotation>")
+        paths["cob_write_s"] = [f.result() for f in writes]
+    with open(os.path.join(voc_dir, "ImageSets", "Main", "trainaug.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
     with open(paths["ann"], "w") as f:
         json.dump({"images": images, "annotations": annotations,
                    "categories": [{"id": c + 1, "name": f"c{c}"} for c in range(n_categories)]}, f)

@@ -7,14 +7,21 @@ Layout: <ckpt_dir>/model_step<step>.pth holding the model's state_dict
 prev_lr, the trainer's seed and ``step``: the number of completed steps,
 which is the index of the next step to run. A trainer loaded from it
 continues the run: its LR schedule, momentum correction and per-step
-generator seeds pick up where the saved one stopped.
+generator seeds pick up where the saved one stopped. Evaluation reads the
+model alone (load_model_weights). save_ckpt writes to a temporary file and
+renames it, so a reader, wait_for_checkpoint's among them, never sees half
+a checkpoint.
 """
 from __future__ import annotations
 
+import logging
 import os
 import re
+import time
 
 import torch
+
+logger = logging.getLogger(__name__)
 
 _NAME = re.compile(r"model_step(\d+)\.pth$")
 
@@ -43,14 +50,55 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def load_ckpt(ckpt_dir: str, trainer, step: int | None = None) -> dict:
-    """Restore the trainer (built for the same config) from ckpt_dir at
-    ``step`` (default: the latest); returns the checkpoint's ``extra``."""
+def checkpoint_location(path: str):
+    """A --load_ckpt argument as (directory, step): a model_step<n>.pth file
+    names its step; a directory means its latest."""
+    m = _NAME.match(os.path.basename(path))
+    if m:
+        return os.path.dirname(path), int(m.group(1))
+    return path, None
+
+
+def wait_for_checkpoint(ckpt_dir: str, poll_s: float = 10.0,
+                        timeout_s: float | None = None) -> int:
+    """Block until a checkpoint appears in ckpt_dir; returns its step
+    (cim_tpu/engine/checkpoint.py:85; reference tools/test_net.py:156-163),
+    so that evaluation can start before training has written a snapshot.
+    Raises TimeoutError after timeout_s (None: wait forever)."""
+    t0 = time.monotonic()
+    while True:
+        step = latest_step(ckpt_dir)
+        if step is not None:
+            return step
+        if timeout_s is not None and time.monotonic() - t0 > timeout_s:
+            raise TimeoutError(f"No checkpoint appeared in {ckpt_dir}")
+        logger.info("Waiting for checkpoint in %s ...", ckpt_dir)
+        time.sleep(poll_s)
+
+
+def _checkpoint_file(ckpt_dir: str, step: int | None) -> str:
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"No checkpoint in {ckpt_dir}")
-    payload = torch.load(os.path.join(ckpt_dir, f"model_step{step}.pth"),
-                         map_location=trainer.device, weights_only=True)
+    return os.path.join(ckpt_dir, f"model_step{step}.pth")
+
+
+def load_model_weights(ckpt_dir: str, model, step: int | None = None) -> int:
+    """Load only the model's state_dict of the checkpoint at ``step``
+    (default: the latest) into ``model`` (strict); returns the step. The
+    tensors are read to the CPU and copied into the model where it lies;
+    the optimizer's buffers, half of a training snapshot, are not moved."""
+    payload = torch.load(_checkpoint_file(ckpt_dir, step), map_location="cpu",
+                         weights_only=True)
+    model.load_state_dict(payload["model"], strict=True)
+    return int(payload["step"])
+
+
+def load_ckpt(ckpt_dir: str, trainer, step: int | None = None) -> dict:
+    """Restore the trainer (built for the same config) from ckpt_dir at
+    ``step`` (default: the latest); returns the checkpoint's ``extra``."""
+    payload = torch.load(_checkpoint_file(ckpt_dir, step), map_location=trainer.device,
+                         weights_only=True)
     trainer.model.load_state_dict(payload["model"], strict=True)
     trainer.optimizer.load_state_dict(payload["optimizer"])
     trainer.step_count = int(payload["step"])

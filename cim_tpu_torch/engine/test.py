@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from cim_tpu_torch.data.transforms import TORCH_MEAN, TORCH_STD
-from cim_tpu_torch.ops.boxes import flip_boxes
+from cim_tpu_torch.ops.boxes import box_voting_np, flip_boxes
 from cim_tpu_torch.ops.image import resize_bilinear_dynamic, resize_bilinear_dynamic_batched
 from cim_tpu_torch.ops.nms import nms_np, soft_nms_np
 from cim_tpu_torch.utils.device import check_on, resolve_device
@@ -317,8 +317,6 @@ def box_results_with_nms_and_limit(cfg, scores, boxes):
     (reference lib/core/test.py:355-423). scores: (N, C) without bg;
     boxes: (N, 4). Returns (scores, boxes, cls_boxes) where cls_boxes[j]
     for j in 1..C holds the (n_j, 5) detections of class j - 1."""
-    if cfg.TEST.BBOX_VOTE.ENABLED:
-        raise NotImplementedError("TEST.BBOX_VOTE is not ported yet")
     num_classes = cfg.MODEL.NUM_CLASSES
     cls_boxes = [np.zeros((0, 5), np.float32) for _ in range(num_classes)]
     for j in range(num_classes):
@@ -334,6 +332,12 @@ def box_results_with_nms_and_limit(cfg, scores, boxes):
             )
         else:
             nms_dets = dets_j[nms_np(dets_j, cfg.TEST.NMS)]
+        # post-NMS box voting (reference test.py:390-396; off by default)
+        if cfg.TEST.BBOX_VOTE.ENABLED and len(nms_dets):
+            nms_dets = box_voting_np(
+                nms_dets, dets_j, cfg.TEST.BBOX_VOTE.VOTE_TH,
+                scoring_method=cfg.TEST.BBOX_VOTE.SCORING_METHOD,
+            )
         cls_boxes[j] = nms_dets
 
     if cfg.TEST.DETECTIONS_PER_IM > 0:

@@ -8,15 +8,17 @@ applies box_results_with_nms_and_limit (or box_results_for_corloc) per
 image and calls task_evaluation.evaluate_all. The dataset, roidb and
 metric code are the port's copies of cim_tpu's host modules. With
 TPU.EVAL_BATCH > 1 (the shipped configs' 8) images go through the
-cross-image BatchedEvaluator in windows of 4 x EVAL_BATCH. The overlap of
-host NMS with the next image, multi-GPU eval (TPU.EVAL_DEVICES over more
-than one card) and the multi-process fan-out are not ported yet.
+cross-image BatchedEvaluator in windows of 4 x EVAL_BATCH. The host's
+NMS and limit (or CorLoc argmax) of each image runs in one worker thread
+(_AsyncPost) while the card runs the next images. multi_process_inference
+is the reference's fan-out over child processes (the test_net CLI's
+--multi_proc); every child sees the same devices. Multi-GPU eval
+(TPU.EVAL_DEVICES over more than one card) is not ported yet.
 """
 from __future__ import annotations
 
 import logging
 import os
-import pickle
 from collections import defaultdict
 
 import torch
@@ -30,6 +32,7 @@ from cim_tpu_torch.engine.test import (
     box_results_with_nms_and_limit,
 )
 from cim_tpu_torch.utils.device import resolve_device
+from cim_tpu_torch.utils.io import load_object, save_object
 
 logger = logging.getLogger(__name__)
 
@@ -52,6 +55,37 @@ def _det_basename(check_corloc: bool) -> str:
     return "discovery" if check_corloc else "detections"
 
 
+class _AsyncPost:
+    """The host's NMS and limit (or CorLoc argmax) of each image in one
+    worker thread, overlapping the card's work on the next images. Numpy
+    and the C++ NMS, which releases the interpreter lock; the same
+    functions as post_process_results, so the results are the same bits."""
+
+    def __init__(self, cfg, check_corloc: bool):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._post = box_results_for_corloc if check_corloc else box_results_with_nms_and_limit
+        self._cfg = cfg
+        self._futures = {}
+
+    def _one(self, scores, boxes):
+        return self._post(self._cfg, scores, boxes)[2]
+
+    def submit(self, key, scores, boxes):
+        self._futures[key] = self._pool.submit(self._one, scores, boxes)
+
+    def results(self) -> dict:
+        try:
+            return {k: f.result() for k, f in self._futures.items()}
+        finally:
+            self._pool.shutdown()
+
+
+def _cache_key(check_corloc: bool) -> str:
+    return "_cls_boxes_corloc" if check_corloc else "_cls_boxes"
+
+
 def _default_image_loader(entry):
     import cv2
 
@@ -72,19 +106,26 @@ def test_net(
     image_loader=None,
     evaluator=None,
     device="cuda",
+    timers=None,
 ):
     """Single-device dataset loop. model: a CIMModel on ``device`` (the
     card unless the caller passes device="cpu").
     image_loader(entry) -> (H, W, 3) uint8 BGR image (defaults to
     cv2.imread). evaluator: a prebuilt Evaluator (TPU.EVAL_BATCH 1) or
-    BatchedEvaluator (above 1) to reuse."""
+    BatchedEvaluator (above 1) to reuse. timers: a defaultdict(Timer)
+    that receives the loop's timers ("im_detect_bbox": the evaluator's
+    calls). Without ind_range each record also carries its post-processed
+    detections (the _AsyncPost cache) after the pickle is written."""
     roidb, dataset, start_ind, end_ind, total_num_images = get_roidb_and_dataset(
         cfg, dataset_name, proposal_file, ind_range
     )
     num_images = len(roidb)
     image_loader = image_loader or _default_image_loader
-    timers = defaultdict(Timer)
+    timers = defaultdict(Timer) if timers is None else timers
     all_scores = {}
+    # a --range child's records are post-processed by the parent, from the
+    # range pickle, so it runs no worker
+    post = _AsyncPost(cfg, check_corloc) if ind_range is None else None
     eval_batch = int(cfg.TPU.EVAL_BATCH or 1)
     eval_devices = int(cfg.TPU.get("EVAL_DEVICES", 1) or 1)
     if eval_batch > 1:
@@ -109,6 +150,8 @@ def test_net(
             timers["im_detect_bbox"].toc(average=False)
             for e, (scores, boxes) in zip(chunk, results):
                 all_scores[e["image"]] = {"scores": scores, "boxes": boxes}
+                if post is not None:
+                    post.submit(e["image"], scores, boxes)
             done = min(w0 + window, num_images)
             ave = timers["im_detect_bbox"].total_time / done
             logger.info(
@@ -127,6 +170,8 @@ def test_net(
             scores, boxes = evaluator.im_detect_all(im, entry["boxes"], entry["masks"])
             timers["im_detect_bbox"].toc()
             all_scores[entry["image"]] = {"scores": scores, "boxes": boxes}
+            if post is not None:
+                post.submit(entry["image"], scores, boxes)
             if i % 10 == 0:
                 ave = timers["im_detect_bbox"].average_time
                 logger.info(
@@ -138,22 +183,31 @@ def test_net(
     det_name = _det_basename(check_corloc) + ".pkl"
     if ind_range is not None:
         det_name = f"{det_name[:-4]}_range_{ind_range[0]}_{ind_range[1]}.pkl"
-    os.makedirs(output_dir, exist_ok=True)
     det_file = os.path.join(output_dir, det_name)
-    with open(det_file, "wb") as f:
-        pickle.dump(all_scores, f, pickle.HIGHEST_PROTOCOL)
+    save_object(all_scores, det_file)
     logger.info("Wrote detections to: %s", os.path.abspath(det_file))
+    # the worker's results join the records only now, so that the pickle
+    # on disk stays {scores, boxes} (the reference's, test_engine.py:312-330)
+    if post is not None:
+        key = _cache_key(check_corloc)
+        for image, cls_boxes in post.results().items():
+            all_scores[image][key] = cls_boxes
     return all_scores, roidb, dataset
 
 
 def post_process_results(cfg, all_scores, roidb, dataset, check_corloc=False):
     """Per-image NMS + limit (or CorLoc argmax) -> all_boxes
-    (reference test_engine.py:188-197)."""
+    (reference test_engine.py:188-197). A record's cached detections
+    (test_net's _AsyncPost) are used as they are; records without them (a
+    merged range pickle) are post-processed here, with the same functions."""
     all_boxes = empty_results(cfg.MODEL.NUM_CLASSES, len(roidb))
     post = box_results_for_corloc if check_corloc else box_results_with_nms_and_limit
+    key = _cache_key(check_corloc)
     for i, entry in enumerate(roidb):
         rec = all_scores[entry["image"]]
-        _, _, cls_boxes_i = post(cfg, rec["scores"], rec["boxes"])
+        cls_boxes_i = rec.get(key)
+        if cls_boxes_i is None:
+            cls_boxes_i = post(cfg, rec["scores"], rec["boxes"])[2]
         for j in range(1, cfg.MODEL.NUM_CLASSES + 1):
             all_boxes[j][i] = cls_boxes_i[j]
     return all_boxes
@@ -169,17 +223,19 @@ def run_inference(
     ind_range=None,
     evaluator=None,
     device="cuda",
+    timers=None,
 ):
     """Top-level inference + evaluation (reference run_inference :90-151).
     With ind_range only that slice is processed and pickled, and
-    evaluation is skipped. Returns (results, all_boxes, all_scores)."""
+    evaluation is skipped. timers: as test_net's. Returns (results,
+    all_boxes, all_scores)."""
     dataset_name = cfg.TEST.DATASETS[0]
     proposal_file = cfg.TEST.PROPOSAL_FILES[0] if cfg.TEST.PROPOSAL_FILES else None
     all_scores, roidb, dataset = test_net(
         cfg, model, dataset_name, proposal_file, output_dir,
         ind_range=tuple(ind_range) if ind_range else None,
         check_corloc=check_corloc, image_loader=image_loader,
-        evaluator=evaluator, device=device,
+        evaluator=evaluator, device=device, timers=timers,
     )
     if ind_range:
         return None, None, all_scores
@@ -215,3 +271,52 @@ def _post_process_and_evaluate(cfg, all_scores, roidb, dataset, output_dir,
         if failures:
             raise AssertionError("expected results not met: " + "; ".join(failures))
     return results, all_boxes, all_scores
+
+
+def multi_process_inference(cfg, child_argv, n_procs, output_dir, check_corloc=False,
+                            check_expected_results=False):
+    """The reference's fan-out over processes (multi_gpu_test_net_on_dataset,
+    lib/core/test_engine.py:204-244, and utils/subprocess.py:41-145): split
+    the dataset into ``n_procs`` contiguous index ranges, run one child
+    ``python -m cim_tpu_torch.tools.test_net *child_argv --range s e`` per
+    range, wait for every child, require each to exit 0, merge their range
+    pickles into one and post-process and evaluate in this process. The
+    children inherit the environment (and see the same devices); this
+    package's root joins their PYTHONPATH so that they import it. Returns
+    (results, all_boxes, all_scores)."""
+    import subprocess
+    import sys
+
+    from cim_tpu_torch.parallel import eval_index_range, merge_sharded_results
+
+    dataset_name = cfg.TEST.DATASETS[0]
+    proposal_file = cfg.TEST.PROPOSAL_FILES[0] if cfg.TEST.PROPOSAL_FILES else None
+    roidb, dataset, _, _, _ = get_roidb_and_dataset(cfg, dataset_name, proposal_file)
+    n = len(roidb)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    procs = []
+    for i in range(n_procs):
+        s, e = eval_index_range(n, i, n_procs)
+        if s == e:
+            continue
+        cmd = [sys.executable, "-m", "cim_tpu_torch.tools.test_net", *child_argv,
+               "--range", str(s), str(e)]
+        logger.info("spawning shard [%d, %d): %s", s, e, " ".join(cmd))
+        procs.append((s, e, subprocess.Popen(cmd, env=env)))
+    # wait for every child before judging any: failing at the first would
+    # leave the others running, each holding its device
+    failed = [(s, e, rc) for s, e, p in procs if (rc := p.wait()) != 0]
+    if failed:
+        raise RuntimeError(f"child shards failed as (start, end, exit code): {failed}")
+
+    base = _det_basename(check_corloc)
+    all_scores = merge_sharded_results(
+        [load_object(os.path.join(output_dir, f"{base}_range_{s}_{e}.pkl")) for s, e, _ in procs])
+    if len(all_scores) != n:
+        raise RuntimeError(f"the shards hold {len(all_scores)} images of {n}")
+    save_object(all_scores, os.path.join(output_dir, f"{base}.pkl"))
+    return _post_process_and_evaluate(
+        cfg, all_scores, roidb, dataset, output_dir, check_corloc, check_expected_results,
+    )

@@ -27,7 +27,6 @@ import argparse
 import logging
 import os
 import pickle
-import re
 import socket
 import time
 import traceback
@@ -36,7 +35,7 @@ import numpy as np
 import torch
 
 from cim_tpu_torch.config import assert_and_infer_cfg, cfg_from_file, cfg_from_list, get_default_cfg
-from cim_tpu_torch.engine.checkpoint import load_ckpt, save_ckpt
+from cim_tpu_torch.engine.checkpoint import checkpoint_location, load_ckpt, save_ckpt
 from cim_tpu_torch.engine.stats import TrainingStats, setup_logging
 from cim_tpu_torch.engine.train import Trainer, metrics_to_floats
 from cim_tpu_torch.utils.device import resolve_device
@@ -109,15 +108,6 @@ def rescale_solver(cfg, batch_size: int, iter_size: int):
 def snapshot_period(cfg, n_devices: int, iter_size: int) -> int:
     """Steps between snapshots (cim_tpu tools/train.py:256-258)."""
     return max(1, int(cfg.TRAIN.SNAPSHOT_ITERS / (n_devices * iter_size)))
-
-
-def _checkpoint_location(path: str):
-    """--load_ckpt as (directory, step): a model_step<n>.pth file names its
-    step; a directory means its latest."""
-    m = re.match(r"model_step(\d+)\.pth$", os.path.basename(path))
-    if m and os.path.isfile(path):
-        return os.path.dirname(path), int(m.group(1))
-    return path, None
 
 
 class _TensorBoard:
@@ -207,7 +197,7 @@ def _data(cfg, args, device, start: int):
 
 def _load_weights(trainer, args):
     if args.load_ckpt:
-        ckpt_dir, step = _checkpoint_location(args.load_ckpt)
+        ckpt_dir, step = checkpoint_location(args.load_ckpt)
         load_ckpt(ckpt_dir, trainer, step)
         if not args.resume:
             trainer.step_count = args.start_step

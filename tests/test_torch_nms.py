@@ -72,10 +72,17 @@ def test_box_results_for_corloc_matches_jax(rng):
 
 
 def test_bbox_vote_not_ported(rng):
+    """TEST.BBOX_VOTE, which the port refused until it had box_voting_np,
+    now runs: the same detections as cim_tpu's on the same inputs (voted
+    coordinates within rtol 1e-6: cim_tpu's IoU is jnp float32, the
+    port's numpy float32; tests/test_torch_mask_results.py has more)."""
     cfg = get_default_cfg()
     cfg.TEST.BBOX_VOTE.ENABLED = True
     boxes = _dets(rng)[:, :4]
-    with pytest.raises(NotImplementedError, match="BBOX_VOTE"):
-        torch_test.box_results_with_nms_and_limit(
-            cfg, np.ones((len(boxes), cfg.MODEL.NUM_CLASSES), np.float32), boxes
-        )
+    scores = rng.rand(len(boxes), cfg.MODEL.NUM_CLASSES).astype(np.float32)
+    _, _, want = jax_test.box_results_with_nms_and_limit(cfg, scores, boxes)
+    _, _, got = torch_test.box_results_with_nms_and_limit(cfg, scores, boxes)
+    assert len(got) == len(want) == cfg.MODEL.NUM_CLASSES + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=0)
