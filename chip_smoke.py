@@ -13,20 +13,27 @@ of which fails the run:
                    the card, at the eval path's shapes (the maps of all five
                    TTA scales, float32 and bf16, grid caps 4 and 2), at the
                    square image's 76x76 map, at the train path's buckets
-                   (scales 480 and 1200, N 2048 and 4096) and at strides
-                   8 and 32; each
+                   (scales 480 and 1200, N 2048 and 4096), at strides 8
+                   and 32, and at the VGG-16 and HRNet-W48 paths' maps
+                   (stride 8: a square image's 152x152x512 1200 pass and
+                   the train buckets; stride 32: 30x38x2048 and
+                   12x16x2048); each
                    twice, to the same bits, with its plan, and the kernel's
                    time summed over an eval image's 10 passes; then the
                    batched forward (one launch for a stack of images, each
                    with its own valid extent): 8 bf16 images and 3 f32 at
-                   the 1200 pass's map, against the plain version, twice to
-                   the same bits, and each image bit-equal to its own call
+                   the 1200 pass's map, and stacks of 8 bf16 at the VGG-16
+                   (120x152x512) and HRNet-W48 (30x38x2048) 1200 pass maps,
+                   against the plain version, twice to the same bits, and
+                   each image bit-equal to its own call
   roi_align_bwd    the backward kernel against its plain version on the
                    card, at the train path's shapes (scales 480 and 1200,
                    N 2048 / 2047 / 4096 with zero-area padding ROIs,
-                   float32 and bf16, grid caps 4 and 2) and at stride 8
-                   (30 row bands, a part-filled channel slice); each
-                   twice, to the same bits
+                   float32 and bf16, grid caps 4 and 2), at stride 8
+                   (30 row bands, a part-filled channel slice) and at the
+                   VGG-16 and HRNet-W48 train buckets (stride 32: two
+                   channel slices, N 2048 and 4096); each twice, to the
+                   same bits
   reference        the full-width model in float32: the card (kernels)
                    against the CPU (plain versions) on one small image with
                    two TTA passes
@@ -73,12 +80,24 @@ of which fails the run:
                    0.3 and visualize_results on 2 images; the CLIs' times
                    (45-55 s of the whole run's 210-250 s of command time
                    on an H100, the .mat files' 36-45 s write in train_cli)
+  vgg16, hrnet48   the paper's other two bodies (configs/vgg16_voc.yaml,
+                   hrnet48_voc.yaml) at full width, bf16 compute, RoIAlign
+                   cap 4, seeded random weights: the float32 model on the
+                   card against the CPU (scores, and the body's features
+                   within 1e-3 of their largest magnitude); run_inference
+                   at EVAL_BATCH 8 over the eval_batched phase's 16 images
+                   (20 forward launches); the float32 train microbatch on
+                   the card against the CPU (losses; the gradients of
+                   Box_Head and the body's last layers); the Trainer runs of
+                   the train phase (4 backward launches a step, frozen
+                   stages unchanged, everything else moved)
 
 With --profile, one more training step (scale 1200, 2048 proposals) runs
 under torch.profiler and its device time by operator, by phase
 (cim.forward, cim.losses, cim.mining, cim.backward, cim.optimizer) and of
 each of the port's kernels is printed, and the CLI's sixth step is traced
-(its device busy share).
+(its device busy share); for each other body, one eval stack and one
+train step are profiled the same way.
 
 The card's nvidia-smi name and power limit come on the [device] line and
 again on a line of their own; the line before the last is a JSON object
@@ -182,14 +201,28 @@ ROI_ALIGN_CASES = [
     ("train1200_bf16", (60, 76, 1024), (60, 76), 1 / 16, 2048, torch.bfloat16, 0, 4),
     ("train480_bf16", (24, 32, 1024), (24, 32), 1 / 16, 2048, torch.bfloat16, 0, 4),
     ("train1200_bf16_n4096", (60, 76, 1024), (60, 76), 1 / 16, 4096, torch.bfloat16, 0, 4),
+    # the VGG-16 paths' (stride 8): a square image's 1200 pass, the widest
+    # valid map of its eval (22,500 cells), and the train buckets
+    ("vgg16_square1200_bf16", (152, 152, 512), (150, 150), 1 / 8, 2048, torch.bfloat16, 0, 4),
+    ("vgg16_train1200_bf16", (120, 152, 512), (120, 152), 1 / 8, 2048, torch.bfloat16, 0, 4),
+    ("vgg16_train480_bf16", (48, 64, 512), (48, 64), 1 / 8, 2048, torch.bfloat16, 0, 4),
+    # the HRNet-W48 paths' (stride 32, whole maps)
+    ("hrnet48_train1200_bf16", (30, 38, 2048), (30, 38), 1 / 32, 2048, torch.bfloat16, 0, 4),
+    ("hrnet48_train480_bf16", (12, 16, 2048), (12, 16), 1 / 32, 2048, torch.bfloat16, 0, 4),
 ]
 # the batched forward's cases (cross-image eval stacks at the 1200 pass's
-# 60x76x1024 map): the images of a stack share a bucket, not a size, so
-# each has its own valid extent: (name, extents, dtype)
+# map): the images of a stack share a bucket, not a size, so each has its
+# own valid extent: (name, features, scale, extents, dtype). ResNet-50's
+# 60x76x1024 map, VGG-16's 120x152x512 (floor(v / 8) of the content) and
+# HRNet-W48's 30x38x2048 (the whole map: HRNet masks no feature pad)
 ROI_ALIGN_BATCHED_CASES = [
-    ("eval_b8_bf16", [(57, 75), (57, 68), (52, 75), (57, 75), (48, 75), (57, 60), (55, 73),
-                      (57, 75)], torch.bfloat16),
-    ("eval_b3_f32", [(57, 75), (50, 70), (57, 64)], torch.float32),
+    ("eval_b8_bf16", EVAL_FEAT, 1 / 16, [(57, 75), (57, 68), (52, 75), (57, 75), (48, 75),
+                                         (57, 60), (55, 73), (57, 75)], torch.bfloat16),
+    ("eval_b3_f32", EVAL_FEAT, 1 / 16, [(57, 75), (50, 70), (57, 64)], torch.float32),
+    ("vgg16_b8_bf16", (120, 152, 512), 1 / 8, [(112, 150), (112, 136), (104, 150), (112, 150),
+                                               (96, 150), (112, 120), (110, 146), (112, 150)],
+     torch.bfloat16),
+    ("hrnet48_b8_bf16", (30, 38, 2048), 1 / 32, [(30, 38)] * 8, torch.bfloat16),
 ]
 EVAL_BATCH = 8  # the shipped configs' TPU.EVAL_BATCH
 N_BATCHED_IMAGES = 16  # two full stacks
@@ -287,7 +320,7 @@ def phase_roi_align():
     path's) for the kernels line, with the kernel's time summed over the
     10 passes of an eval image."""
     rng = np.random.RandomState(SEED)
-    main_case, times = None, {}
+    main_case, times, other_bodies = None, {}, {}
     with torch.no_grad():
         for name, shape, valid, scale, n, dtype, sr, cap in ROI_ALIGN_CASES:
             feat, rois = _roi_case(rng, shape, valid, scale, n, dtype)
@@ -321,13 +354,19 @@ def phase_roi_align():
                 main_case = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                              "plan": plan._asdict()}
+            if name.startswith(("stride", "vgg16", "hrnet48")):
+                other_bodies[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                                      "bound_by": b_by, "max_abs_err": err}
             del feat, rois, out, again, ref
     passes = {t: times[f"eval{t}_bf16" if t != 1200 else "eval_bf16"] for t in EVAL_PASS_MAPS}
     main_case["eval_image_ms"] = 2 * sum(passes.values())
     log(f"[roi_align] per eval image (10 passes: each scale with and without hflip, "
         f"bf16, N 2048, cap 4): {main_case['eval_image_ms']:.4f} ms of kernel time "
         f"({', '.join(f'{t}: 2 x {ms:.4f}' for t, ms in passes.items())})")
-    main_case["batched"] = phase_roi_align_batched(rng)
+    batched = phase_roi_align_batched(rng)
+    main_case["batched"] = batched.pop("eval_b8_bf16")
+    # the VGG-16 and HRNet-W48 paths' shapes, one call and batched
+    main_case["other_bodies"] = {**other_bodies, **batched}
     return main_case
 
 
@@ -335,12 +374,12 @@ def phase_roi_align_batched(rng):
     """The batched forward (one launch for a stack of images, each with its
     own valid extent) against its plain version, twice to the same bits,
     and each image bit-equal to a call of its own; timed beside the sum of
-    those single calls. Returns the bf16 stack of 8 (the eval path's) for
-    the kernels line."""
-    shape, scale, n, cap = EVAL_FEAT, 1 / 16, 2048, 4
-    out_case = None
+    those single calls. Returns the bf16 stacks of 8 (the eval paths') by
+    name for the kernels line."""
+    n, cap = 2048, 4
+    out_cases = {}
     with torch.no_grad():
-        for name, extents, dtype in ROI_ALIGN_BATCHED_CASES:
+        for name, shape, scale, extents, dtype in ROI_ALIGN_BATCHED_CASES:
             cases = [_roi_case(rng, shape, hw, scale, n, dtype) for hw in extents]
             feat = torch.stack([f for f, _ in cases]).contiguous()
             rois = torch.stack([r for _, r in cases]).contiguous()
@@ -374,19 +413,21 @@ def phase_roi_align_batched(rng):
             b_ms, b_by = bound(n_bytes, 2.0 * shape[2] * cells, dtype)
             plan = ra.fwd_launch_plan(*max(extents, key=lambda hw: hw[0] * hw[1]), shape[2],
                                       dtype, rois.device, batch)
-            log(f"[roi_align] {name}: {batch} images of {shape} valid {extents} N {n} "
+            log(f"[roi_align] {name}: {batch} images of {shape} valid {extents} "
+                f"scale 1/{round(1 / scale)} N {n} "
                 f"{str(dtype)[6:]} cap {cap}, plan {plan._asdict()}: max_abs_err {err:.3g} "
                 f"(bound {tol:.3g}), two runs the same bits, each image the bits of its own call, "
                 f"kernel {k_ms:.4f} ms (its {batch} single calls {singles_ms:.4f} ms), "
                 f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({cells} tap cells, "
                 f"{n_bytes / 1e6:.1f} MB)")
             check(err <= tol, f"{name}: kernel agrees with the plain version")
-            if out_case is None:
-                out_case = {"name": name, "batch": batch, "max_abs_err": err, "ms": k_ms,
-                            "single_calls_ms": singles_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                            "bound_by": b_by, "library_ms": None, "plan": plan._asdict()}
+            if dtype == torch.bfloat16:
+                out_cases[name] = {"name": name, "batch": batch, "max_abs_err": err, "ms": k_ms,
+                                   "single_calls_ms": singles_ms, "plain_ms": p_ms,
+                                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                                   "plan": plan._asdict()}
             del feat, rois, out, again, ref, single
-    return out_case
+    return out_cases
 
 
 def phase_roi_align_bwd():
@@ -398,13 +439,19 @@ def phase_roi_align_bwd():
     N 2048 and the 4096 cap. Then zero-padded buckets with a smaller valid
     extent, float32, N 2047 and grid cap 2, and the stride-8 map of the
     1200 pass (120x152x512: 30 row bands of the kernel's plan, half a
-    channel slice). Each case runs twice and must give the same bits: the
-    kernel sums in a fixed order. Returns the scale-1200 bf16 N 2048 case
-    (the train main path's) for the kernels line."""
+    channel slice). Then the other bodies' train buckets: VGG-16's at
+    stride 8 (120x152x512 and 48x64x512) and HRNet-W48's at stride 32
+    (30x38x2048 with N 2048 and 4096, 12x16x2048: two channel slices).
+    Each case runs twice and must give the same bits: the kernel sums in a
+    fixed order. Returns the scale-1200 bf16 N 2048 case (ResNet-50's train
+    main path) for the kernels line, with the other bodies' cases."""
     rng = np.random.RandomState(SEED + 3)
     t1200, t480 = ((60, 76, 1024), (60, 76)), ((24, 32, 1024), (24, 32))
     p1200, p480 = ((76, 100, 1024), (75, 100)), ((32, 40, 1024), (30, 40))
     s8 = ((120, 152, 512), (113, 150))
+    # the other bodies' train buckets (whole maps)
+    s8_1200, s8_480 = ((120, 152, 512), (120, 152)), ((48, 64, 512), (48, 64))
+    s32_1200, s32_480 = ((30, 38, 2048), (30, 38)), ((12, 16, 2048), (12, 16))
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
         # (name, (features, valid), scale, N, dtype, cap)
@@ -416,8 +463,13 @@ def phase_roi_align_bwd():
         ("pad32x40_f32_n2047", p480, 1 / 16, 2047, f32, 4),
         ("pad32x40_f32_cap2", p480, 1 / 16, 2048, f32, 2),
         ("stride8_bf16_bands", s8, 1 / 8, 2048, bf16, 4),
+        ("vgg16_train1200_bf16", s8_1200, 1 / 8, 2048, bf16, 4),
+        ("vgg16_train480_bf16", s8_480, 1 / 8, 2048, bf16, 4),
+        ("hrnet48_train1200_bf16", s32_1200, 1 / 32, 2048, bf16, 4),
+        ("hrnet48_train1200_bf16_n4096", s32_1200, 1 / 32, 4096, bf16, 4),
+        ("hrnet48_train480_bf16", s32_480, 1 / 32, 2048, bf16, 4),
     ]
-    main_case = None
+    main_case, other_bodies = None, {}
     for name, (shape, valid), scale, n, dtype, cap in cases:
         _, rois = _roi_case(rng, shape, valid, scale, n, dtype)
         g = torch.from_numpy(rng.randn(n, 7, 7, shape[2]).astype(np.float32)).cuda()
@@ -455,12 +507,16 @@ def phase_roi_align_bwd():
             main_case = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                          "plan": plan._asdict()}
+        if name.startswith(("stride8", "vgg16", "hrnet48")):
+            other_bodies[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                                  "bound_by": b_by, "max_abs_err": err}
         del out, again, ref, mag, g
+    main_case["other_bodies"] = other_bodies
     return main_case
 
 
-def _smoke_cfg(data_dir, props):
-    cfg = load_cfg(os.path.join(REPO, "configs", "resnet50_voc.yaml"))
+def _smoke_cfg(data_dir, props, config="resnet50_voc"):
+    cfg = load_cfg(os.path.join(REPO, "configs", f"{config}.yaml"))
     cfg.TPU.PALLAS_ROI_ALIGN = True  # bench.py's choice for a non-CPU backend: cap 4
     cfg.TPU.EVAL_BATCH = 1
     cfg.TPU.PRECISION = "bf16_compute"
@@ -490,9 +546,12 @@ def _image_loader(entry):
     return r.randint(0, 256, (entry["height"], entry["width"], 3)).astype(np.uint8)
 
 
-def phase_reference(cfg, model):
+def phase_reference(cfg, model, tag="reference"):
     """The full-width model in float32, TF32 off: the card (RoIAlign kernel)
-    against the CPU (plain version), one 120x160 image, hflip + identity."""
+    against the CPU (plain version), one 120x160 image, hflip + identity:
+    scores within rtol 2e-3, atol 2e-5, and the body's features of a
+    128x160 image within 1e-3 of their largest magnitude (float32 sums in
+    another order, cuDNN's against the CPU's, through up to ~100 convs)."""
     cfg = clone_cfg(cfg)
     cfg.TPU.PRECISION = "f32"
     cfg.TEST.SCALE = 160
@@ -504,15 +563,25 @@ def phase_reference(cfg, model):
     boxes = np.stack([x1, y1, np.minimum(x1 + rng.uniform(8, 90, 64), 159),
                       np.minimum(y1 + rng.uniform(8, 70, 64), 119)], -1).astype(np.float32)
     masks = (rng.rand(64, 7, 7) > 0.4).astype(np.float32)
-    scores = {}
+    feat_in = torch.from_numpy(rng.randn(128, 160, 3).astype(np.float32) * 50)
+    scores, feats = {}, {}
     for device in ("cuda", "cpu"):
         m = build_model(cfg, device=device)
         m.load_state_dict(state)
         scores[device], _ = Evaluator(cfg, m, device=device).im_detect_all(im, boxes, masks)
+        with torch.no_grad():
+            feats[device] = m.convbody_net(feat_in.to(device)).cpu()
         del m
     err = np.abs(scores["cuda"] - scores["cpu"]).max()
-    log(f"[reference] float32 full-width model, 2 TTA passes, 64 proposals: "
-        f"card vs CPU max_abs_err {err:.3g} (scores up to {scores['cpu'].max():.3g})")
+    fmax = feats["cpu"].abs().max().item()
+    ferr = (feats["cuda"] - feats["cpu"]).abs().max().item()
+    log(f"[{tag}] float32 full-width model, 2 TTA passes, 64 proposals: "
+        f"card vs CPU max_abs_err {err:.3g} (scores up to {scores['cpu'].max():.3g}); "
+        f"features {tuple(feats['cpu'].shape)} max_abs_err {ferr:.3g} of max |feature| "
+        f"{fmax:.3g} ({ferr / fmax:.3g}), {100 * (feats['cpu'] == 0).float().mean().item():.1f} % "
+        f"zero, std over cells / max {feats['cpu'].reshape(-1, feats['cpu'].shape[-1]).std(0).mean().item() / fmax:.3g}")
+    check(torch.isfinite(feats["cuda"]).all() and fmax > 0, f"{tag}: features finite, not all zero")
+    check(ferr <= 1e-3 * fmax, f"{tag}: card features agree with the CPU's")
     np.testing.assert_allclose(scores["cuda"], scores["cpu"], rtol=2e-3, atol=2e-5)
 
 
@@ -649,11 +718,54 @@ def phase_batched_reference(cfg, model):
     del m
 
 
+def _eval_stacks(cfg, model, roidb, out_dir, card, tag):
+    """run_inference at the shipped EVAL_BATCH over the roidb's
+    N_BATCHED_IMAGES images, after one warm stack outside the counted run
+    (cuDNN's choices at the batch, the allocator): one forward launch a
+    pass of each stack and no backward, scores finite in [0, 1] and not
+    constant, a finite AP. Returns (the evaluator, the scores, the forward
+    launches, the run's seconds)."""
+    passes = Evaluator.tta_pass_list(cfg)
+    batched = _TimedBatchedEvaluator(cfg, model)
+    batched.im_detect_all_many([(_image_loader(e), e["boxes"], e["masks"])
+                                for e in roidb[:EVAL_BATCH]])
+    warm_s = batched.seconds.pop()[0]
+    torch.cuda.reset_peak_memory_stats()
+    roi_align.kernel_launches = 0
+    roi_align_backward.kernel_launches = 0
+    t0 = time.perf_counter()
+    results, _, all_scores = run_inference(cfg, model, out_dir, image_loader=_image_loader,
+                                           evaluator=batched)
+    e2e_s = time.perf_counter() - t0
+    launches = roi_align.kernel_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stacks = N_BATCHED_IMAGES // EVAL_BATCH
+    check(launches == len(passes) * stacks,
+          f"{tag}: {launches} roi_align kernel launches for {stacks} stacks x {len(passes)} passes")
+    check(roi_align_backward.kernel_launches == 0, f"{tag}: eval launches no backward kernel")
+    check(len(all_scores) == N_BATCHED_IMAGES, f"{tag}: one score record per image")
+    for name, rec in all_scores.items():
+        s = rec["scores"]
+        check(s.shape == (N_PROPS, cfg.MODEL.NUM_CLASSES), f"{tag} {name}: scores shape {s.shape}")
+        check(np.isfinite(s).all() and s.min() >= 0.0 and s.max() <= 1.0,
+              f"{tag} {name}: scores finite in [0, 1]")
+        check(s.std() > 0, f"{tag} {name}: scores not constant")
+    check(np.isfinite(results["AP"]) and np.isfinite(results["AP50"]), f"{tag}: finite COCO AP")
+    log(f"[{tag}] {card}: EVAL_BATCH {EVAL_BATCH}, {N_BATCHED_IMAGES} images: fused TTA "
+        f"{batched.per_image():.4f} s/image (im_detect_all_many calls "
+        f"{[(round(s, 4), n) for s, n in batched.seconds]} as (s, images); "
+        f"warm-up stack {warm_s:.3f} s), run_inference end to end "
+        f"{e2e_s / N_BATCHED_IMAGES:.4f} s/image, peak device memory {peak_gb:.2f} GB, "
+        f"roi_align kernel launches {launches}")
+    return batched, all_scores, launches, e2e_s
+
+
 def phase_eval_batched(work_dir, card, model, profile=False):
     """run_inference at the shipped EVAL_BATCH over N_BATCHED_IMAGES
     images (two full stacks), between two runs at EVAL_BATCH 1 over the
     same images; with ``profile``, one stack under torch.profiler. Returns
-    the forward kernel's launches of the batched run."""
+    the forward kernel's launches of the batched run, and the images'
+    directory and proposal file (the other bodies' eval runs over them)."""
     data_dir = os.path.join(work_dir, "batched")
     os.makedirs(data_dir)
     ann, props = write_synthetic_coco_dataset(
@@ -665,7 +777,6 @@ def phase_eval_batched(work_dir, card, model, profile=False):
     cfg.TEST.DATASETS = ("chip_smoke_batched",)
     cfg.TPU.EVAL_BATCH = EVAL_BATCH
     phase_batched_reference(cfg, model)
-    passes = Evaluator.tta_pass_list(cfg)
     roidb = get_roidb_and_dataset(cfg, cfg.TEST.DATASETS[0], props)[0]
 
     # the same images one at a time, before and after the batched run
@@ -684,42 +795,12 @@ def phase_eval_batched(work_dir, card, model, profile=False):
 
     scores_1, e2e_1, secs_1 = run_sequential("a")
 
-    batched = _TimedBatchedEvaluator(cfg, model)
-    # one warm stack outside the counted run (cuDNN at batch 8, allocator)
-    batched.im_detect_all_many([(_image_loader(e), e["boxes"], e["masks"])
-                                for e in roidb[:EVAL_BATCH]])
-    warm_s = batched.seconds.pop()[0]
-    torch.cuda.reset_peak_memory_stats()
-    roi_align.kernel_launches = 0
-    roi_align_backward.kernel_launches = 0
-    t0 = time.perf_counter()
-    results, all_boxes, all_scores = run_inference(
-        cfg, model, os.path.join(data_dir, "out"), image_loader=_image_loader, evaluator=batched)
-    e2e_s = time.perf_counter() - t0
-    launches = roi_align.kernel_launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    stacks = N_BATCHED_IMAGES // EVAL_BATCH
-    check(launches == len(passes) * stacks,
-          f"{launches} roi_align kernel launches for {stacks} stacks x {len(passes)} passes")
-    check(roi_align_backward.kernel_launches == 0, "eval launches no backward kernel")
-    check(len(all_scores) == N_BATCHED_IMAGES, "one score record per image")
-    for name, rec in all_scores.items():
-        s = rec["scores"]
-        check(s.shape == (N_PROPS, cfg.MODEL.NUM_CLASSES), f"{name}: scores shape {s.shape}")
-        check(np.isfinite(s).all() and s.min() >= 0.0 and s.max() <= 1.0,
-              f"{name}: scores finite in [0, 1]")
-        check(s.std() > 0, f"{name}: scores not constant")
-    check(np.isfinite(results["AP"]) and np.isfinite(results["AP50"]), "finite COCO AP")
+    batched, all_scores, launches, e2e_s = _eval_stacks(
+        cfg, model, roidb, os.path.join(data_dir, "out"), card, "eval_batched")
     per_image_b = batched.per_image()
     _, e2e_1b, secs_1b = run_sequential("b")
     diff = max(float(np.abs(all_scores[k]["scores"] - scores_1[k]["scores"]).max())
                for k in scores_1)
-    log(f"[eval_batched] {card}: EVAL_BATCH {EVAL_BATCH}, {N_BATCHED_IMAGES} images: fused TTA "
-        f"{per_image_b:.4f} s/image (im_detect_all_many calls "
-        f"{[(round(s, 4), n) for s, n in batched.seconds]} as (s, images); "
-        f"warm-up stack {warm_s:.3f} s), run_inference end to end "
-        f"{e2e_s / N_BATCHED_IMAGES:.4f} s/image, peak device memory {peak_gb:.2f} GB, "
-        f"roi_align kernel launches {launches}")
     # both timed over the same images and the same work: each image's
     # preparation on the host, its TTA passes, the scores' copy to the host
     log(f"[eval_batched] {card}: evaluator s/image (the evaluator's time over the "
@@ -732,10 +813,60 @@ def phase_eval_batched(work_dir, card, model, profile=False):
         f"at most {diff:.3g}")
     if profile:
         phase_profile_batched(batched, roidb[:EVAL_BATCH])
-    return launches
+    return launches, data_dir, props
 
 
-def phase_profile_batched(batched, entries):
+# the other bodies of the paper: (config, the modules whose gradients the
+# train reference holds to the CPU's: the head and the body's last layers)
+BODIES = {
+    "vgg16": ("vgg16_voc", ("Box_Head.", "Conv_Body.conv5.")),
+    "hrnet48": ("hrnet48_voc", ("Box_Head.", "Conv_Body.final_layer.",
+                                "Conv_Body.downsamp_modules.")),
+}
+
+
+def phase_body(body, card, data_dir, props, profile=False):
+    """A body's eval and train paths at full width (bf16 compute, RoIAlign
+    cap 4, seeded random weights): the float32 model on the card against
+    the CPU (scores and features); run_inference at the shipped EVAL_BATCH
+    over the eval_batched phase's N_BATCHED_IMAGES images after a warm
+    stack; the float32 train microbatch on the card against the CPU; then
+    the Trainer runs of _train_runs. Returns the kernels' launches: eval
+    forward, train forward, train backward."""
+    config, grads_of = BODIES[body]
+    cfg = _smoke_cfg(data_dir, props, config)
+    cfg.TEST.DATASETS = ("chip_smoke_batched",)
+    cfg.TPU.EVAL_BATCH = EVAL_BATCH
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    model = build_model(cfg, device="cuda", generator=gen)
+    _randomize_frozen_bn(model, gen)
+    body_cls = model.body_cls
+    log(f"[{body}] {config}: {sum(p.numel() for p in model.parameters())} params (body "
+        f"{sum(p.numel() for p in model.Conv_Body.parameters())}), {body_cls.dim_out} channels "
+        f"at stride {round(1 / body_cls.spatial_scale)}, set-up {time.perf_counter() - t0:.1f} s")
+    phase_reference(cfg, model, tag=f"{body}_reference")
+
+    roidb = get_roidb_and_dataset(cfg, cfg.TEST.DATASETS[0], props)[0]
+    batched, _, eval_fwd, _ = _eval_stacks(cfg, model, roidb,
+                                           os.path.join(data_dir, f"out_{body}"), card, body)
+    if profile:
+        phase_profile_batched(batched, roidb[:EVAL_BATCH], tag=f"{body}: one stack")
+    del model, batched
+    torch.cuda.empty_cache()
+
+    phase_train_reference(config, grads_of, tag=f"{body}_train_reference")
+    _, trainer, batches, runs, train_fwd, train_bwd = _train_runs(card, config,
+                                                                  tag=f"{body}_train")
+    if profile:
+        phase_train_profile(trainer, batches[TRAIN_SCALES[-1]], runs[TRAIN_SCALES[-1]],
+                            tag=f"{body}: one train step")
+    del trainer
+    torch.cuda.empty_cache()
+    return eval_fwd, train_fwd, train_bwd
+
+
+def phase_profile_batched(batched, entries, tag="one stack"):
     """Device time of one stack's TTA by operator, against the unprofiled
     run's time an image (the device's busy share)."""
     from torch.autograd import DeviceType
@@ -749,7 +880,7 @@ def phase_profile_batched(batched, entries):
     events = prof.key_averages()
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA) / 1e3
-    log(f"[profile] one stack of {len(items)} images: device busy {device_ms:.1f} ms, "
+    log(f"[profile] {tag} of {len(items)} images: device busy {device_ms:.1f} ms, "
         f"{device_ms / len(items):.1f} ms an image of the unprofiled run's {image_ms:.1f} ms "
         f"({100 * device_ms / len(items) / image_ms:.1f} %)")
     _log_port_kernels(events, device_ms)
@@ -792,8 +923,8 @@ def phase_profile(evaluator, entry):
 
 # ------------------------------------------------------------- training
 
-def _train_cfg():
-    cfg = load_cfg(os.path.join(REPO, "configs", "resnet50_voc.yaml"))
+def _train_cfg(config="resnet50_voc"):
+    cfg = load_cfg(os.path.join(REPO, "configs", f"{config}.yaml"))
     cfg.TPU.PALLAS_ROI_ALIGN = True  # bench.py's choice for a non-CPU backend: cap 4
     cfg.TPU.PRECISION = "bf16_compute"
     return cfg
@@ -815,10 +946,12 @@ def _train_batch(cfg, rng, scale, n_valid):
     return {k: v[0] for k, v in batch.items()}
 
 
-def phase_train_reference():
+def phase_train_reference(config="resnet50_voc", grads_of=("Box_Head.", "Conv_Body.res4."),
+                          tag="train_reference"):
     """One float32 microbatch, card vs CPU, from one set of weights: every
     loss metric within rtol 1e-4 (atol 1e-6), and each gradient tensor of
-    Box_Head and Conv_Body.res4 within 1e-2 of its CPU norm,
+    the modules ``grads_of`` (ResNet-50's: Box_Head and Conv_Body.res4)
+    within 1e-2 of its CPU norm,
     ||g_card - g_cpu|| <= 1e-2 ||g_cpu||. The bound is not float32
     rounding alone: ReLU units whose input lies within rounding of zero
     switch between devices, and each switched (unit, proposal) pair moves
@@ -835,7 +968,7 @@ def phase_train_reference():
     the mined counts in 4 of 5 draws on the CPU, same script). How many
     rows the card's own mining labels differently is printed.
     """
-    cfg = _train_cfg()
+    cfg = _train_cfg(config)
     cfg.TPU.PRECISION = "f32"
     cfg.TPU.GRAD_ACCUM = 1
     cfg.Anti_noise_sampling = False
@@ -863,24 +996,24 @@ def phase_train_reference():
         losses = losses_from_pseudo_labels(cfg, o, b, pseudo)
         losses["total_loss"].backward()
         grads = {n: p.grad.detach().cpu() for n, p in t.model.named_parameters()
-                 if n.startswith(("Box_Head.", "Conv_Body.res4."))}
+                 if n.startswith(grads_of)}
         out[name] = ({k: v.item() for k, v in losses.items()}, grads)
     check(roi_align.kernel_launches == fwd0 + 1 and roi_align_backward.kernel_launches == bwd0 + 1,
           "the card's microbatch ran both kernels once")
     (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
-    log(f"[train_reference] float32 full width, 64 proposals: the card's own mining labels "
+    log(f"[{tag}] float32 full width, 64 proposals: the card's own mining labels "
         f"{differ} rows of {len(shared)} branches differently from the CPU's; with the CPU's "
         f"pseudo labels, losses card {lc} / CPU {lh}")
     for k, v in lh.items():
         check(np.isfinite(lc[k]) and abs(lc[k] - v) <= 1e-6 + 1e-4 * abs(v),
-              f"train_reference: {k} card {lc[k]} vs CPU {v}")
+              f"{tag}: {k} card {lc[k]} vs CPU {v}")
     worst = max(((gc[n] - gh[n]).norm().item() / max(gh[n].norm().item(), 1e-30), n) for n in gh)
     worst_el = max(((gc[n] - gh[n]).abs().max().item() / max(gh[n].abs().max().item(), 1e-30), n)
                    for n in gh)
-    log(f"[train_reference] {len(gh)} gradient tensors of Box_Head and Conv_Body.res4: "
+    log(f"[{tag}] {len(gh)} gradient tensors of {', '.join(grads_of)}: "
         f"worst ||card - CPU|| / ||CPU|| {worst[0]:.3g} ({worst[1]}); worst "
         f"max|card - CPU| / max|CPU| {worst_el[0]:.3g} ({worst_el[1]})")
-    check(worst[0] <= 1e-2, f"train_reference: gradient of {worst[1]} agrees")
+    check(worst[0] <= 1e-2, f"{tag}: gradient of {worst[1]} agrees")
     check(lh["has_gt_0"] == 1.0, "the reference microbatch mined a pseudo-GT")
 
 
@@ -895,10 +1028,15 @@ def _timed_steps(trainer, batch, n):
     return out
 
 
-def phase_train(card, work_dir, profile=False):
-    """The slice's main path: the resnet50_voc Trainer at full width.
-    Returns the forward and backward kernels' launches in it."""
-    cfg = _train_cfg()
+def _train_runs(card, config="resnet50_voc", tag="train"):
+    """Trainer of ``config`` at full width (bf16 compute, RoIAlign cap 4,
+    GRAD_ACCUM 4, seeded random weights): a warm step, then TRAIN_STEPS
+    timed steps at each TRAIN_SCALES bucket with 2000 proposals, then a
+    warm and a timed step at scale 1200 with 4000. Checks the launches
+    (one forward and one backward a microbatch), finite losses, the frozen
+    stages unchanged and every other parameter moved. Returns (cfg,
+    trainer, batches, runs, forward launches, backward launches)."""
+    cfg = _train_cfg(config)
     accum = cfg.TPU.GRAD_ACCUM
     rng = np.random.RandomState(SEED + 4)
     t0 = time.perf_counter()
@@ -908,7 +1046,7 @@ def phase_train(card, work_dir, profile=False):
     trainer = Trainer(cfg, device="cuda", seed=SEED, init_generator=gen)
     _randomize_frozen_bn(trainer.model, gen)
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
-    log(f"[train] resnet50_voc: GRAD_ACCUM {accum}, buckets "
+    log(f"[{tag}] {config}: GRAD_ACCUM {accum}, buckets "
         f"{ {k: tuple(b['image'].shape[1:3]) + (b['rois'].shape[1],) for k, b in batches.items()} }, "
         f"set-up {time.perf_counter() - t0:.1f} s")
 
@@ -925,10 +1063,10 @@ def phase_train(card, work_dir, profile=False):
     fwd, bwd = roi_align.kernel_launches, roi_align_backward.kernel_launches
 
     check(fwd == bwd == n_steps * accum,
-          f"{fwd} forward / {bwd} backward kernel launches for {n_steps} steps x {accum}")
+          f"{tag}: {fwd} forward / {bwd} backward kernel launches for {n_steps} steps x {accum}")
     for key, steps in runs.items():
         for _, m, _ in steps:
-            check(all(np.isfinite(v) for v in m.values()), f"{key}: finite losses {m}")
+            check(all(np.isfinite(v) for v in m.values()), f"{tag} {key}: finite losses {m}")
     frozen = frozen_paths_for(cfg)
     for n, p in trainer.model.named_parameters():
         same = torch.equal(p.detach(), before[n])
@@ -938,18 +1076,26 @@ def phase_train(card, work_dir, profile=False):
             # bias has no weight decay
             continue
         check(same == is_frozen(n, frozen),
-              f"{n}: {'unchanged' if same else 'moved'} (frozen: {is_frozen(n, frozen)})")
+              f"{tag} {n}: {'unchanged' if same else 'moved'} (frozen: {is_frozen(n, frozen)})")
     for key in [*TRAIN_SCALES, "4096"]:
         secs = [s for s, _, _ in runs[key]]
         _, last, rounds = runs[key][-1]
-        log(f"[train] {card}: bucket {key}: s/step median {np.median(secs):.4f} "
+        log(f"[{tag}] {card}: bucket {key}: s/step median {np.median(secs):.4f} "
             f"(each {[round(s, 4) for s in secs]}), {accum / np.median(secs):.2f} images/s, "
             f"peak device memory {peak_gb[key]:.2f} GB; "
             f"losses {({k: round(v, 4) for k, v in last.items() if 'loss' in k})}, "
             f"mined_gt {[round(last[f'mined_gt_{k}'], 1) for k in range(cfg.REFINE_TIMES)]}, "
             f"NMS rounds of its last step {rounds}")
-    log(f"[train] warm-up steps s: {[round(runs[k][0][0], 3) for k in runs if 'warm' in str(k)]}; "
-        f"launches forward {fwd}, backward {bwd}")
+    log(f"[{tag}] warm-up steps s: {[round(runs[k][0][0], 3) for k in runs if 'warm' in str(k)]}; "
+        f"frozen {frozen}; launches forward {fwd}, backward {bwd}")
+    return cfg, trainer, batches, runs, fwd, bwd
+
+
+def phase_train(card, work_dir, profile=False):
+    """The resnet50_voc Trainer at full width (_train_runs), then a
+    checkpoint resume. Returns the forward and backward kernels' launches
+    of the training runs."""
+    cfg, trainer, batches, runs, fwd, bwd = _train_runs(card)
 
     # checkpoint: save, load into a fresh trainer, one more step on both
     path = save_ckpt(os.path.join(work_dir, "ckpt"), trainer)
@@ -971,7 +1117,7 @@ def phase_train(card, work_dir, profile=False):
     return fwd, bwd
 
 
-def phase_train_profile(trainer, batch, timed):
+def phase_train_profile(trainer, batch, timed, tag="one train step"):
     """Device time of one training step by operator and by phase, against
     the median unprofiled s/step of its bucket."""
     from torch.autograd import DeviceType
@@ -989,7 +1135,7 @@ def phase_train_profile(trainer, batch, timed):
     # ranges, which span idle time and would count their kernels twice
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA and not e.key.startswith("cim.")) / 1e3
-    log(f"[profile] one train step: device busy {device_ms:.1f} ms of the {wall_ms:.1f} ms "
+    log(f"[profile] {tag}: device busy {device_ms:.1f} ms of the {wall_ms:.1f} ms "
         f"profiled step ({100 * device_ms / wall_ms:.1f} %) and of the {median_ms:.1f} ms "
         f"median unprofiled step ({100 * device_ms / median_ms:.1f} %)")
     # per phase: host time in the range, and device time of the kernels
@@ -1294,8 +1440,8 @@ def main():
         eval_launches, evaluator, roidb = phase_main_path(work_dir, card)
         if args.profile:
             phase_profile(evaluator, roidb[1])
-        batched_launches = phase_eval_batched(work_dir, card, evaluator.model,
-                                              profile=args.profile)
+        batched_launches, batched_dir, batched_props = phase_eval_batched(
+            work_dir, card, evaluator.model, profile=args.profile)
         del evaluator
         phase_train_reference()
         train_fwd, train_bwd = phase_train(card, work_dir, profile=args.profile)
@@ -1305,6 +1451,8 @@ def main():
         roi_align_backward.kernel_launches = 0
         eval_cli_fwd = phase_eval_cli(work_dir, card, cli_paths, cli_ckpt)
         eval_cli_bwd = roi_align_backward.kernel_launches
+        bodies = {body: phase_body(body, card, batched_dir, batched_props, profile=args.profile)
+                  for body in BODIES}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -1317,7 +1465,9 @@ def main():
             "launches": train_fwd,
             "launches_by_path": {"eval": eval_launches, "eval_batched": batched_launches,
                                  "train": train_fwd, "train_cli": cli_fwd,
-                                 "eval_cli": eval_cli_fwd},
+                                 "eval_cli": eval_cli_fwd,
+                                 **{f"eval_{b}": v[0] for b, v in bodies.items()},
+                                 **{f"train_{b}": v[1] for b, v in bodies.items()}},
             **fwd_kernel,
         },
         {
@@ -1327,7 +1477,9 @@ def main():
             "replaces": "cim_tpu/ops/pallas/roi_align_kernel.py:169",
             "launches": train_bwd,
             "launches_by_path": {"eval": 0, "eval_batched": 0, "train": train_bwd,
-                                 "train_cli": cli_bwd, "eval_cli": eval_cli_bwd},
+                                 "train_cli": cli_bwd, "eval_cli": eval_cli_bwd,
+                                 **{f"eval_{b}": 0 for b in bodies},
+                                 **{f"train_{b}": v[2] for b, v in bodies.items()}},
             **bwd_kernel,
         },
     ]}))

@@ -12,6 +12,7 @@ from typing import Dict, List
 import torch
 import torch.nn as nn
 
+from cim_tpu_torch.models import hrnet, vgg
 from cim_tpu_torch.models.heads import ClsIouHead
 from cim_tpu_torch.models.layers import torch_default_init_
 from cim_tpu_torch.models.mask_fuse import MaskFuse
@@ -21,6 +22,8 @@ from cim_tpu_torch.utils.device import resolve_device
 
 BACKBONES = {
     "resnet50.torch_resnet50": ResNet50C4,
+    "vgg16.dilated_conv5_body": vgg.DilatedVGG16,
+    "HRNet.get_HRNet": hrnet.HRNetW48,
     "tiny.conv_body": TinyConvBody,  # the CPU tests' body
 }
 
@@ -89,14 +92,46 @@ class CIMModel(nn.Module):
 
 def frozen_paths_for(cfg) -> List[str]:
     """Module paths whose parameters do not train: the reference's
-    FREEZE_AT stages (cim_tpu/models/builder.py frozen_paths_for; for
-    ResNet-50 the stem ``res1`` and, at FREEZE_AT 2, ``res2``), or the
-    whole conv body under TRAIN.FREEZE_CONV_BODY."""
+    FREEZE_AT stages (cim_tpu/models/builder.py frozen_paths_for; at
+    FREEZE_AT 2, ResNet-50's ``res1`` and ``res2``, VGG-16's ``conv1`` and
+    ``conv2``, HRNet's stem, ``layer1`` and ``stage2``), or the whole conv
+    body under TRAIN.FREEZE_CONV_BODY."""
     if cfg.TRAIN.FREEZE_CONV_BODY:
         return ["Conv_Body"]
-    if cfg.MODEL.CONV_BODY.startswith("resnet50"):
-        return [f"Conv_Body.res{i}" for i in range(1, cfg.ResNet.FREEZE_AT + 1)]
-    return []
+    body = cfg.MODEL.CONV_BODY
+    if body.startswith("resnet50"):
+        paths = [f"res{i}" for i in range(1, cfg.ResNet.FREEZE_AT + 1)]
+    elif body.startswith("vgg16"):
+        paths = vgg.frozen_param_paths(cfg.VGG.FREEZE_AT)
+    elif body.startswith("HRNet"):
+        paths = hrnet.frozen_param_paths(cfg.HRNET.FREEZE_AT)
+    else:
+        paths = []
+    return [f"Conv_Body.{p}" for p in paths]
+
+
+_STAGE_KEYS = ("NUM_MODULES", "NUM_BRANCHES", "BLOCK", "NUM_BLOCKS", "NUM_CHANNELS")
+
+
+def _as_list(v):
+    return list(v) if isinstance(v, (list, tuple)) else v
+
+
+def _check_hrnet_stages(cfg):
+    """cim_tpu builds its HRNet body's own stages (the body's STAGES)
+    whatever cfg.MODEL.EXTRA says (cim_tpu/models/builder.py), and so does
+    the port: refuse an EXTRA that describes other stages, rather than
+    build a network the config does not describe."""
+    extra, want = cfg.MODEL.get("EXTRA"), BACKBONES[cfg.MODEL.CONV_BODY].STAGES
+    if not extra:
+        return
+    for name in sorted(set(extra) | set(want)):
+        got = extra.get(name) or {}
+        if name not in want or got.get("FUSE_METHOD") != "SUM" or any(
+                _as_list(got.get(k)) != _as_list(want[name][k]) for k in _STAGE_KEYS):
+            raise NotImplementedError(
+                f"MODEL.EXTRA.{name} {dict(got)} is not a stage of {cfg.MODEL.CONV_BODY} "
+                f"({want.get(name)}, FUSE_METHOD SUM): other HRNet stages are not ported")
 
 
 def is_frozen(name: str, frozen_paths) -> bool:
@@ -126,6 +161,8 @@ def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
         )
     if bool(cfg.TPU.get("EVAL_INT8", False)):
         raise NotImplementedError("TPU.EVAL_INT8 is not ported yet")
+    if hasattr(BACKBONES.get(cfg.MODEL.CONV_BODY), "STAGES"):
+        _check_hrnet_stages(cfg)
     cap = cfg.TPU.MAX_ADAPTIVE_GRID
     if cfg.TPU.PALLAS_ROI_ALIGN:
         cap = max(cap, 4)

@@ -108,6 +108,16 @@ def ceil_div_hw(valid_hw, k: int):
     return ((valid_hw[0] + k - 1) // k, (valid_hw[1] + k - 1) // k)
 
 
+def floor_div_hw(valid_hw, k: int):
+    """Valid extent after max pooling k2 s2 p0 (VGG), which drops a
+    trailing odd row: floor(v / k), of one pair or of each image's."""
+    if valid_hw is None:
+        return None
+    if is_per_image(valid_hw):
+        return [floor_div_hw(hw, k) for hw in valid_hw]
+    return (valid_hw[0] // k, valid_hw[1] // k)
+
+
 @torch.no_grad()
 def torch_default_init_(model: nn.Module, generator: torch.Generator):
     """PyTorch's default init of every Conv2d and Linear, drawn from

@@ -22,6 +22,8 @@ from cim_tpu_torch.models.layers import (
 class Bottleneck(nn.Module):
     """torchvision-v1.5 bottleneck: 1x1 -> 3x3 (stride) -> 1x1, x4 width."""
 
+    expansion = 4
+
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, device=None):
         super().__init__()

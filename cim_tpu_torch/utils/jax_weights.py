@@ -10,6 +10,12 @@ under the reference names (``Conv_Body.res1.0.weight``,
 Layouts: conv HWIO -> OIHW; dense (in, out) -> (out, in); FrozenBatchNorm
 params (scale, bias) + stats (mean, var) -> weight, bias, running_mean,
 running_var.
+
+The bodies: ResNet-50 (inverse of convert_torchvision_resnet50 and the
+res1..res4 relabel), dilated VGG-16 (of convert_vgg16; the reference's
+``conv{g}.{i}`` names, which cim_tpu reads as ``features.N`` after an
+ordered relabel) and HRNet (of convert_hrnet_w48), and cim_tpu's tiny
+test body.
 """
 from __future__ import annotations
 
@@ -17,6 +23,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from cim_tpu_torch.models.hrnet import W48_STAGES
+from cim_tpu_torch.models.vgg import GROUPS as VGG_GROUPS
 
 _STAGES = {"res2": 3, "res3": 4, "res4": 6}
 
@@ -50,16 +59,21 @@ def _tiny_body(sd, bp):
 
 
 def state_dict_from_jax(variables, conv_body: str = "resnet50",
-                        refine_times: int = 3) -> Dict[str, torch.Tensor]:
+                        refine_times: int = 3, stages=None) -> Dict[str, torch.Tensor]:
     """flax CIMModel variables -> reference-named float32 CPU tensors.
     conv_body: a cfg.MODEL.CONV_BODY name, or its prefix ("resnet50",
-    "tiny")."""
+    "vgg16", "HRNet", "tiny"). stages: an HRNet body's stage config
+    (cfg.MODEL.EXTRA-like; None: W48)."""
     params, stats = variables["params"], variables.get("stats", {})
     sd: Dict[str, torch.Tensor] = {}
     if conv_body.startswith("tiny"):
         _tiny_body(sd, params["conv_body"])
     elif conv_body.startswith("resnet50"):
         _resnet50_body(sd, params["conv_body"], stats["conv_body"])
+    elif conv_body.startswith("vgg16"):
+        _vgg16_body(sd, params["conv_body"])
+    elif conv_body.startswith("HRNet"):
+        _hrnet_body(sd, params["conv_body"], stats["conv_body"], stages or W48_STAGES)
     else:
         raise NotImplementedError(f"conv body {conv_body!r} is not ported yet")
     _heads(sd, params, refine_times)
@@ -79,6 +93,76 @@ def _resnet50_body(sd, bp, bs):
             if b == 0:
                 sd[f"{pre}.downsample.0.weight"] = _conv(p["downsample_conv"]["conv"])
                 _bn(sd, f"{pre}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+
+
+def _vgg16_body(sd, bp):
+    """DilatedVGG16's conv{g}_{j} -> Conv_Body.conv{g}.{2j} (conv, ReLU
+    pairs in each group's Sequential)."""
+    for g, chans in enumerate(VGG_GROUPS, 1):
+        for j in range(len(chans)):
+            p = bp[f"conv{g}_{j}"]["conv"]
+            sd[f"Conv_Body.conv{g}.{2 * j}.weight"] = _conv(p)
+            sd[f"Conv_Body.conv{g}.{2 * j}.bias"] = _tensor(p["bias"])
+
+
+def _hr_conv_bn(sd, conv, bn, p, s, name):
+    """cim_tpu.models.hrnet's {name}_conv / {name}_bn -> conv and bn."""
+    c = p[f"{name}_conv"]["conv"]
+    sd[conv + ".weight"] = _conv(c)
+    if "bias" in c:
+        sd[conv + ".bias"] = _tensor(c["bias"])
+    _bn(sd, bn, p[f"{name}_bn"], s[f"{name}_bn"])
+
+
+def _hr_block(sd, pre, p, s):
+    """c1/c2[/c3][/ds] -> conv1/bn1 ... [downsample.0/1]."""
+    for i in (1, 2, 3):
+        if f"c{i}_conv" in p:
+            _hr_conv_bn(sd, f"{pre}.conv{i}", f"{pre}.bn{i}", p, s, f"c{i}")
+    if "ds_conv" in p:
+        _hr_conv_bn(sd, f"{pre}.downsample.0", f"{pre}.downsample.1", p, s, "ds")
+
+
+def _hrnet_body(sd, bp, bs, stages):
+    body = "Conv_Body."
+    _hr_conv_bn(sd, body + "conv1", body + "bn1", bp, bs, "stem1")
+    _hr_conv_bn(sd, body + "conv2", body + "bn2", bp, bs, "stem2")
+    for b in range(stages["STAGE1"]["NUM_BLOCKS"][0]):
+        _hr_block(sd, f"{body}layer1.{b}", bp[f"layer1_b{b}"], bs[f"layer1_b{b}"])
+    for k in (2, 3, 4):
+        sc = stages[f"STAGE{k}"]
+        branches = sc["NUM_BRANCHES"]
+        trans = f"{body}transition{k - 1}"
+        for i in range(branches):
+            if f"trans{k}_{i}_conv" in bp:  # a 3x3 conv where the width changes
+                _hr_conv_bn(sd, f"{trans}.{i}.0", f"{trans}.{i}.1", bp, bs, f"trans{k}_{i}")
+            j = 0
+            while f"trans{k}_{i}_{j}_conv" in bp:  # a new branch's stride-2 chain
+                _hr_conv_bn(sd, f"{trans}.{i}.{j}.0", f"{trans}.{i}.{j}.1", bp, bs,
+                            f"trans{k}_{i}_{j}")
+                j += 1
+        for m in range(sc["NUM_MODULES"]):
+            p, s = bp[f"stage{k}_m{m}"], bs[f"stage{k}_m{m}"]
+            pre = f"{body}stage{k}.{m}"
+            for i in range(branches):
+                for b in range(sc["NUM_BLOCKS"][i]):
+                    _hr_block(sd, f"{pre}.branches.{i}.{b}", p[f"branch{i}_block{b}"],
+                              s[f"branch{i}_block{b}"])
+            for i in range(branches):
+                for j in range(i + 1, branches):
+                    fuse = f"{pre}.fuse_layers.{i}.{j}"
+                    _hr_conv_bn(sd, f"{fuse}.0", f"{fuse}.1", p, s, f"fuse{i}_{j}")
+                for j in range(i):
+                    for n in range(i - j):
+                        fuse = f"{pre}.fuse_layers.{i}.{j}.{n}"
+                        _hr_conv_bn(sd, f"{fuse}.0", f"{fuse}.1", p, s, f"fuse{i}_{j}_{n}")
+    branches = stages["STAGE4"]["NUM_BRANCHES"]
+    for i in range(branches):
+        _hr_block(sd, f"{body}incre_modules.{i}.0", bp[f"incre{i}"], bs[f"incre{i}"])
+    for i in range(branches - 1):
+        _hr_conv_bn(sd, f"{body}downsamp_modules.{i}.0", f"{body}downsamp_modules.{i}.1",
+                    bp, bs, f"downsamp{i}")
+    _hr_conv_bn(sd, body + "final_layer.0", body + "final_layer.1", bp, bs, "final")
 
 
 def _heads(sd, params, refine_times):

@@ -35,8 +35,9 @@ sys.exit(1 if bad else 0)
 """
 
 
-@pytest.mark.parametrize("modules", [["package"], ["chip_smoke"]],
-                         ids=["slice", "chip_smoke"])
+@pytest.mark.parametrize("modules", [["package"], ["chip_smoke"],
+                                     ["cim_tpu_torch.models.vgg", "cim_tpu_torch.models.hrnet"]],
+                         ids=["slice", "chip_smoke", "bodies"])
 def test_imports_load_no_jax(modules):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

@@ -32,7 +32,7 @@ def small_cfg(from_yaml: bool = False):
     return cfg
 
 
-def _perturb_bn(tree, rng):
+def perturb_bn(tree, rng):
     """Give every FrozenBatchNorm non-trivial statistics and affine
     parameters, so the frozen-BN math is exercised (flax's init is the
     identity)."""
@@ -49,7 +49,7 @@ def _perturb_bn(tree, rng):
                 v = {"scale": rng.uniform(0.5, 1.5, n).astype(np.float32),
                      "bias": rng.randn(n).astype(np.float32) * 0.1}
             else:
-                v = _perturb_bn(v, rng)
+                v = perturb_bn(v, rng)
         out[k] = v
     return out
 
@@ -64,7 +64,7 @@ def init_variables(cfg, seed: int = 0):
         np.ones((n, 7, 7), np.float32), np.ones(n, bool),
     )
     variables = jax.tree.map(np.asarray, variables)
-    return _perturb_bn(variables, np.random.RandomState(seed))
+    return perturb_bn(variables, np.random.RandomState(seed))
 
 
 def torch_model(cfg, variables):
