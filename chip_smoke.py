@@ -91,13 +91,42 @@ of which fails the run:
                    Box_Head and the body's last layers); the Trainer runs of
                    the train phase (4 backward launches a step, frozen
                    stages unchanged, everything else moved)
+  preprocess       the offline preprocessing on the train_cli phase's
+                   on-disk set (8 JPEGs, 2000 full-size COB .mat masks
+                   each): generate_7_7 with 2 spawn workers (its pkl equal
+                   to the host function's); create_cob_iou on the card at
+                   full size (2000 x 187,500; its float16 matrices bit-equal
+                   to a --device cpu run on 2 images; s/image split into
+                   .mat load and the product's CUDA-event time, peak
+                   memory); the float32 PRM (seeded, BN statistics
+                   randomized) on the card against the CPU on one 448x448
+                   image (the CRM within 1e-4 of its max, find_peaks of the
+                   CPU's CRM equal, the response maps of 8 of the CPU's
+                   peaks within 1e-3 relative L1; peak-set agreement on its
+                   own line); 64 peaks' maps in one pass (peak memory under
+                   20 GB, time); AGPL_label_assign on the card from a
+                   reference-named checkpoint, at a threshold giving every
+                   image 16 peaks or more (each proposal one cluster at
+                   most, the assignment equal to the host's on the same
+                   peaks; s/image split into load, PRM block and
+                   assignment); point_level_label_assign on the card (equal
+                   to the host's); the training CLI 2 steps at iter_size 4
+                   on those outputs (8 forward and 8 backward launches,
+                   train_cli_pre); PRMClassifierTrainer at full width
+                   (FCResNet50, 20 classes, 16 x 448x448: a warm and 3 timed
+                   steps, s/step, images/s, peak memory, the classifier
+                   moving more than the features). The phase runs under
+                   PyTorch's default cuDNN flag (TF32 allowed; the others
+                   run with TF32 off): the PRM classes turn TF32 off for
+                   their own calls
 
 With --profile, one more training step (scale 1200, 2048 proposals) runs
 under torch.profiler and its device time by operator, by phase
 (cim.forward, cim.losses, cim.mining, cim.backward, cim.optimizer) and of
 each of the port's kernels is printed, and the CLI's sixth step is traced
 (its device busy share); for each other body, one eval stack and one
-train step are profiled the same way.
+train step are profiled the same way; and one image's PRM block (the
+AGPL CLI's peaks and response maps) is profiled for its device time.
 
 The card's nvidia-smi name and power limit come on the [device] line and
 again on a line of their own; the line before the last is a JSON object
@@ -133,9 +162,10 @@ from cim_tpu_torch.engine.test import BatchedEvaluator, Evaluator
 from cim_tpu_torch.engine.test_engine import get_roidb_and_dataset, run_inference
 from cim_tpu_torch.engine.train import Trainer, losses_from_pseudo_labels, mine_pseudo_labels
 from cim_tpu_torch.models.builder import build_model, frozen_paths_for, is_frozen
-from cim_tpu_torch.models.layers import FrozenBatchNorm
+from cim_tpu_torch.models.layers import FrozenBatchNorm, torch_default_init_
 from cim_tpu_torch.ops import _build
 from cim_tpu_torch.ops import roi_align as ra
+from cim_tpu_torch.ops.mask_iou import mask_iou_matrices
 from cim_tpu_torch.ops.roi_align import (
     roi_align,
     roi_align_backward,
@@ -143,12 +173,19 @@ from cim_tpu_torch.ops.roi_align import (
     roi_align_plain,
 )
 from cim_tpu_torch.evaluation import rle as rle_util
+from cim_tpu_torch.prm.model import MAX_PEAKS, PeakResponseMapper, load_prm_checkpoint
+from cim_tpu_torch.prm.modules import find_peaks
+from cim_tpu_torch.prm.train import PRMClassifierTrainer
 from cim_tpu_torch.tools import change_mask_thr
 from cim_tpu_torch.tools import evaluation as eval_cli
 from cim_tpu_torch.tools import generate_mask_for_MaskRCNN as export_cli
 from cim_tpu_torch.tools import test_net as test_net_cli
 from cim_tpu_torch.tools import train as train_cli
 from cim_tpu_torch.tools import visualize_results
+from cim_tpu_torch.tools.pre import AGPL_label_assign as agpl_cli
+from cim_tpu_torch.tools.pre import create_cob_iou as iou_cli
+from cim_tpu_torch.tools.pre import generate_7_7
+from cim_tpu_torch.tools.pre import point_level_label_assign as points_cli
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -232,6 +269,11 @@ CLI_SNAPSHOT = 3  # the step of the snapshot the resumed run starts from
 TRAIN_STEPS = 3  # timed steps per 2048-proposal bucket
 TRAIN_SCALES = (480, 1200)
 TRAIN_N_VALID = (2000, 4000)  # a typical COB count (bucket 2048), and bench.py's cap run (4096)
+MIN_PEAKS = 16  # peaks each image selects in the AGPL run (its threshold is chosen for it)
+PRM_CPU_PEAKS = 8  # peaks of the card-vs-CPU response-map check (8 copies at 448 on the CPU)
+PRM_BATCH = 16  # the PRM classifier's training batch at 448x448
+PRM_STEPS = 3
+PRM_MEMORY_CAP_GB = 20.0  # one pass of MAX_PEAKS image copies must stay under it
 
 
 def log(msg):
@@ -1150,15 +1192,9 @@ def phase_train_profile(trainer, batch, timed, tag="one train step"):
 
 
 def _iou_on_card(masks):
-    """(iou, asy_iou) of (n, h, w) bool masks: data.synthetic.mask_matrices'
-    arithmetic as a float32 product on the card (TF32 off: exact counts)."""
-    flat = torch.from_numpy(masks.reshape(masks.shape[0], -1)).cuda().float()
-    inter = flat @ flat.T
-    area = flat.sum(-1)
-    union = area[:, None] + area[None, :] - inter
-    iou = inter / union.clamp(min=1.0)
-    asy = inter / area[None, :].clamp(min=1.0)
-    return iou.cpu().numpy(), asy.cpu().numpy()
+    """(iou, asy_iou) float32 arrays of (n, h, w) bool masks, from one
+    product on the card (ops.mask_iou, exact counts)."""
+    return tuple(m.cpu().numpy() for m in mask_iou_matrices(torch.from_numpy(masks).cuda()))
 
 
 def phase_train_cli(work_dir, card, profile=False):
@@ -1419,6 +1455,327 @@ def phase_eval_cli(work_dir, card, paths, ckpt_dir):
     return fwd
 
 
+# -------------------------------------------------------- preprocessing
+
+def _pickle_load(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _gt_classes(ann_path):
+    """image id -> its gt classes as AGPL_label_assign takes them (contiguous
+    indices of the sorted category ids, sorted)."""
+    with open(ann_path) as f:
+        ann = json.load(f)
+    contig = {c: i for i, c in enumerate(sorted(c["id"] for c in ann["categories"]))}
+    out = {im["id"]: set() for im in ann["images"]}
+    for a in ann["annotations"]:
+        out[a["image_id"]].add(contig[a["category_id"]])
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def _prm_checkpoint(path):
+    """A seeded FCResNet50 (frozen-BN statistics randomized) saved as the
+    reference saves a PRM: a DataParallel state_dict with BN's
+    num_batches_tracked. Returns the CPU model."""
+    mapper = PeakResponseMapper(num_classes=20, device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    torch_default_init_(mapper.model, gen)
+    _randomize_frozen_bn(mapper.model, gen)
+    sd = {"module." + k: v for k, v in mapper.model.state_dict().items()}
+    sd.update({"module." + k[:-len("running_var")] + "num_batches_tracked": torch.tensor(0)
+               for k in mapper.model.state_dict() if k.endswith("running_var")})
+    torch.save({"state_dict": sd}, path)
+    return mapper
+
+
+def _rel_l1(a, b):
+    return ((a - b).abs().flatten(1).sum(1) / b.abs().flatten(1).sum(1)).max().item()
+
+
+def phase_preprocess(work_dir, card, paths, profile=False):
+    """The offline preprocessing of the port on the train_cli phase's
+    on-disk set (CLI_IMAGES 375x500 JPEGs, N_PROPS full-size COB .mat masks
+    each, ann.json with 2 gt classes an image), then a train on its outputs:
+    generate_7_7 (2 spawn workers) against the in-process host function;
+    create_cob_iou on the card against its --device cpu run on 2 images;
+    the float32 PRM on the card against the CPU; AGPL_label_assign on the
+    card (--prm_ckpt, a threshold giving each image MIN_PEAKS peaks or
+    more) and point_level_label_assign against the host assignment; the
+    train CLI 2 steps at iter_size 4 on those files; PRMClassifierTrainer
+    at full width. Returns the RoIAlign kernels' launches of the train CLI
+    run."""
+    out = os.path.join(work_dir, "preprocess")
+    os.makedirs(out, exist_ok=True)
+    ann, cob = paths["ann"], paths["cob_dir"]
+    ids = generate_7_7.image_ids(ann)
+    base = ["--ann_file", ann, "--cob_dir", cob]
+
+    # 1. generate_7_7 on the host, 2 spawn workers, against the function in-process
+    props = os.path.join(out, "props.pkl")
+    run = generate_7_7.main(base + ["--output", props, "--nprocs", "2"])
+    got = _pickle_load(props)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        want = list(pool.map(generate_7_7.rasterize_one, [(i, cob, "voc", 7) for i in ids]))
+    host_s = time.perf_counter() - t0
+    check(got["indexes"] == ids, f"generate_7_7 indexes {got['indexes']}")
+    for k, (image_id, boxes, masks, scores) in enumerate(want):
+        for key, w in (("boxes", boxes), ("masks", masks), ("scores", scores)):
+            g = got[key][k]
+            check(g.dtype == w.dtype and np.array_equal(g, w),
+                  f"generate_7_7 {key} of image {image_id} equal the host function's")
+    log(f"[preprocess] generate_7_7 (host, 2 spawn workers): {CLI_IMAGES} images x {N_PROPS} "
+        f"{IMAGE_HW[0]}x{IMAGE_HW[1]} masks in {run['seconds']:.2f} s "
+        f"({run['seconds'] / CLI_IMAGES:.3f} s/image), the pkl equal to the function in-process "
+        f"({host_s:.2f} s in 4 threads)")
+
+    # 2. create_cob_iou on the card; its --device cpu run on 2 of the images
+    iou = {d: os.path.join(out, d) for d in ("iou", "asy", "iou_cpu", "asy_cpu")}
+    run = iou_cli.main(base + ["--device", "cuda", "--iou_dir", iou["iou"],
+                               "--asy_iou_dir", iou["asy"]])
+    with open(ann) as f:
+        two = json.load(f)
+    two["images"] = sorted(two["images"], key=lambda im: im["id"])[:2]
+    ann2 = os.path.join(out, "ann_2.json")
+    with open(ann2, "w") as f:
+        json.dump(two, f)
+    t0 = time.perf_counter()
+    iou_cli.main(["--ann_file", ann2, "--cob_dir", cob, "--device", "cpu",
+                  "--iou_dir", iou["iou_cpu"], "--asy_iou_dir", iou["asy_cpu"]])
+    cpu_s = time.perf_counter() - t0
+    names = sorted(os.listdir(iou["iou_cpu"]))
+    check(len(names) == 2 and len(os.listdir(iou["iou"])) == CLI_IMAGES, f"IoU pkls {names}")
+    for name in names:
+        for d in ("iou", "asy"):
+            g, w = _pickle_load(os.path.join(iou[d], name)), _pickle_load(
+                os.path.join(iou[d + "_cpu"], name))
+            check(g.dtype == w.dtype == np.float16 and g.shape == (N_PROPS, N_PROPS)
+                  and np.array_equal(g.view(np.uint16), w.view(np.uint16)),
+                  f"{d} of {name}: the card's float16 matrix is the CPU's, bit for bit")
+    flops = 2.0 * N_PROPS * N_PROPS * IMAGE_HW[0] * IMAGE_HW[1]
+    prod = np.asarray(run["product_ms"][1:])  # the first call picks cuBLAS's kernel
+    log(f"[preprocess] create_cob_iou {card}: {np.mean(run['image_s']):.4f} s/image (each "
+        f"{[round(t, 3) for t in run['image_s']]}), of it the .mat load "
+        f"{np.mean(run['load_s']):.4f} s and the product on the card (CUDA events, upload "
+        f"excluded) {np.median(prod):.3f} ms median of images 2-{CLI_IMAGES} (each "
+        f"{[round(t, 3) for t in run['product_ms']]}; {flops / 1e12:.3f} TFLOP an image: "
+        f"{flops / np.median(prod) / 1e9:.1f} TFLOP/s, bound {1e3 * flops / 67e12:.2f} ms at "
+        f"67 TFLOP/s float32), peak device memory {run['peak_bytes'] / 1e9:.2f} GB; the "
+        f"--device cpu run of 2 images {cpu_s:.1f} s, bit-equal")
+
+    # 3. the PRM in float32 (TF32 off): the card against the CPU on one image
+    ckpt = os.path.join(out, "prm_reference_named.pth")
+    cpu = _prm_checkpoint(ckpt)
+    card_prm = PeakResponseMapper(num_classes=20, device="cuda")
+    load_prm_checkpoint(card_prm.model, ckpt)
+    gts = _gt_classes(ann)
+    with open(ann) as f:
+        files = {im["id"]: im["file_name"] for im in json.load(f)["images"]}
+    images = {i: agpl_cli.load_prm_image(os.path.join(paths["image_dir"], files[i])) for i in ids}
+    v16 = {}
+    for i in ids:  # the threshold: each image keeps MIN_PEAKS peaks of its gt classes
+        crm, pm = (t.cpu().numpy() for t in card_prm.crm_and_peaks(images[i]))
+        vals = np.sort(np.concatenate([crm[c][pm[c]] for c in gts[i]]))[::-1]
+        check(len(vals) >= MIN_PEAKS, f"image {i}: {len(vals)} peaks of gt classes {gts[i]}")
+        v16[i] = float(vals[MIN_PEAKS - 1])
+    threshold = min(v16.values()) - 1e-4 * abs(min(v16.values()))
+    img = images[ids[0]]
+    crm_cpu, pm_cpu = cpu.crm_and_peaks(img)
+    crm_card, pm_card = card_prm.crm_and_peaks(img)
+    scale = crm_cpu.abs().max().item()
+    err = (crm_card.cpu() - crm_cpu).abs().max().item()
+    check(np.isfinite(scale) and scale > 0 and err <= 1e-4 * scale,
+          f"PRM CRM card vs CPU: max_abs_err {err:.3g} of max {scale:.3g}")
+    pm_on_card = find_peaks(crm_cpu[None].cuda())[0].cpu()
+    check(torch.equal(pm_on_card, pm_cpu), "find_peaks of the CPU's CRM: the card's map equal")
+    cpu.peak_threshold = threshold
+    sel = cpu.select_peaks(crm_cpu.numpy(), pm_cpu.numpy(), gts[ids[0]])[:PRM_CPU_PEAKS]
+    peaks = np.array([p[:3] for p in sel], np.int64)
+    t0 = time.perf_counter()
+    prm_cpu = cpu.peak_response_maps(img, peaks)
+    cpu_prm_s = time.perf_counter() - t0
+    prm_card = card_prm.peak_response_maps(img, peaks).cpu()
+    rel = _rel_l1(prm_card, prm_cpu)
+    check(len(peaks) == PRM_CPU_PEAKS and rel <= 1e-3,
+          f"{len(peaks)} peak response maps card vs CPU: relative L1 {rel:.3g}")
+    agree = (pm_card.cpu() == pm_cpu).all().item()
+    n_diff = int((pm_card.cpu() != pm_cpu).sum())
+    log(f"[preprocess] PRM float32 {card}: CRM {tuple(crm_cpu.shape)} card vs CPU max_abs_err "
+        f"{err:.3g} of max {scale:.3g}; find_peaks of the CPU's CRM equal on both; the response "
+        f"maps of the CPU's first {len(peaks)} peaks (threshold {threshold:.6g}) relative L1 "
+        f"{rel:.3g} (CPU {cpu_prm_s:.1f} s)")
+    log(f"[preprocess] peak-set agreement (each device's own CRM): "
+        f"{'equal' if agree else f'{n_diff} of {pm_cpu.numel()} positions differ'} "
+        f"({int(pm_cpu.sum())} peaks on the CPU)")
+    del cpu, prm_cpu, prm_card
+
+    # the most peaks inference_gt passes: MAX_PEAKS image copies in one forward and backward
+    full = np.argwhere(pm_card.cpu().numpy())[:MAX_PEAKS][:, [1, 2, 0]]  # (y, x, class)
+    check(len(full) == MAX_PEAKS, f"{len(full)} peaks in the card's CRM, {MAX_PEAKS} wanted")
+    full_s = []
+    for _ in range(2):  # the first call builds cuDNN's plans for a batch of MAX_PEAKS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        maps = card_prm.peak_response_maps(img, full)
+        torch.cuda.synchronize()
+        full_s.append(time.perf_counter() - t0)
+    full_gb = torch.cuda.max_memory_allocated() / 1e9
+    few = card_prm.peak_response_maps(img, full[:PRM_CPU_PEAKS])
+    few_err = _rel_l1(maps[:PRM_CPU_PEAKS].cpu(), few.cpu())
+    sums = maps.sum(dim=(1, 2))
+    check(bool(torch.isfinite(maps).all()) and (sums - 1).abs().max().item() < 1e-4
+          and few_err <= 1e-3 and full_gb <= PRM_MEMORY_CAP_GB,
+          f"{MAX_PEAKS} response maps in one pass: peak device memory {full_gb:.2f} GB (cap "
+          f"{PRM_MEMORY_CAP_GB}), the first {PRM_CPU_PEAKS} within relative L1 {few_err:.3g} of a "
+          f"pass of {PRM_CPU_PEAKS}")
+    log(f"[preprocess] peak backprop {card}: {MAX_PEAKS} copies of the 448x448 image in one "
+        f"forward and backward, {full_s[1]:.4f} s (first call {full_s[0]:.4f} s), peak device "
+        f"memory {full_gb:.2f} GB (cap {PRM_MEMORY_CAP_GB} GB); its first {PRM_CPU_PEAKS} maps "
+        f"those of a pass of {PRM_CPU_PEAKS} within relative L1 {few_err:.3g}")
+    del maps, few
+
+    # 4. AGPL_label_assign on the card, against the host assignment of its peaks
+    label_assign = os.path.join(out, "label_assign.pkl")
+    torch.cuda.reset_peak_memory_stats()
+    run = agpl_cli.main(base + ["--img_dir", paths["image_dir"], "--output", label_assign,
+                                "--prm_ckpt", ckpt, "--peak_threshold", repr(threshold),
+                                "--device", "cuda"])
+    agpl_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mats = _pickle_load(label_assign)
+    check(mats["indexes"] == ids, f"AGPL indexes {mats['indexes']}")
+    with ThreadPoolExecutor(4) as pool:
+        masks = dict(zip(ids, pool.map(
+            lambda i: generate_7_7.load_cob_mat(generate_7_7.mat_path_for(cob, i, "voc")), ids)))
+    for k, i in enumerate(ids):
+        n, la = run["num_peaks"][k], mats["mat"][k]
+        check(MIN_PEAKS <= n <= MAX_PEAKS, f"image {i}: {n} peaks")
+        check((np.count_nonzero(la, axis=1) <= 1).all(), f"image {i}: one cluster a proposal")
+        pk = np.zeros((MAX_PEAKS, 3), np.int32)
+        sc = np.zeros(MAX_PEAKS, np.float32)
+        pk[:n], sc[:n] = run["peaks"][k], run["peak_scores"][k]
+        host = agpl_cli.assign_image(masks[i], pk, sc, n, 20, device="cpu")
+        check(np.array_equal(la, host), f"image {i}: the card's assignment is the host's")
+    image_s = np.add(np.add(run["load_s"], run["prm_s"]), run["assign_s"])
+    log(f"[preprocess] AGPL_label_assign {card}: peak threshold {threshold!r}, K "
+        f"{run['num_peaks']}; s/image {np.mean(image_s):.4f}: load "
+        f"(JPEG + .mat) {np.mean(run['load_s']):.4f}, PRM block (host clock to the maps' copy "
+        f"back) {np.mean(run['prm_s']):.4f} (each {[round(t, 3) for t in run['prm_s']]}; the "
+        f"first builds cuDNN's plans), assignment {np.mean(run['assign_s']):.4f}; peak device "
+        f"memory {agpl_peak_gb:.2f} GB; clusters an image "
+        f"{[int(m.max()) for m in mats['mat']]}; the host's assignment equal on every image")
+    if profile:
+        _profile_prm(card_prm, images[ids[0]], gts[ids[0]], threshold)
+    del card_prm
+
+    # 5. point_level_label_assign on the card: points inside known proposals
+    pts_dir = os.path.join(out, "Center_points")
+    os.makedirs(pts_dir, exist_ok=True)
+    points = {}
+    for i in ids:
+        pts = []
+        for j, p in enumerate((0, 1, 5)):
+            ys, xs = np.nonzero(masks[i][p])
+            pts.append((float(xs[len(xs) // 2]), float(ys[len(ys) // 2]), (i + j) % 20, 1.0))
+        points[i] = pts
+        with open(os.path.join(pts_dir, eval_cli.cob_mat_name({"id": i})[:-4] + ".txt"), "w") as f:
+            f.write("".join(f"{x:g} {y:g} {c} {p:g}\n" for x, y, c, p in pts))
+    point_mats = os.path.join(out, "point_label_assign.pkl")
+    points_cli.main(base + ["--points_dir", pts_dir, "--output", point_mats, "--device", "cuda"])
+    got = _pickle_load(point_mats)
+    for k, i in enumerate(ids):
+        host = points_cli.assign_from_points(masks[i], points[i], 20, device="cpu")
+        check(np.array_equal(got["mat"][k], host) and got["mat"][k].max() >= 1,
+              f"image {i}: the card's point assignment is the host's")
+    log(f"[preprocess] point_level_label_assign {card}: 3 points an image inside proposals "
+        f"0, 1 and 5, the host's assignment on every image")
+    del masks
+
+    # 6. the train CLI on the port's own outputs
+    accum = 4
+    flags = ["--cfg", os.path.join(REPO, "configs", "resnet50_voc.yaml"), "--device", "cuda",
+             "--iter_size", str(accum), "--max_iter", "2", "--no_save", "--disp_interval", "1",
+             "--seed", str(SEED), "--output_dir", os.path.join(out, "train"), "--set",
+             "TPU.PALLAS_ROI_ALIGN", "True", "TPU.PRECISION", "bf16_compute",
+             "TRAIN.DATASETS", "('chip_smoke_train',)", "TRAIN.PROPOSAL_FILES", f"('{props}',)",
+             "TRAIN.REFINE_FILES", f"('{label_assign}',)", "iou_dir", iou["iou"],
+             "asy_iou_dir", iou["asy"], "DATA_DIR", os.path.dirname(ann)]
+    roi_align.kernel_launches = 0
+    roi_align_backward.kernel_launches = 0
+    run = train_cli.main(flags)
+    fwd, bwd = roi_align.kernel_launches, roi_align_backward.kernel_launches
+    check(run["step"] == 2 and fwd == bwd == 2 * accum,
+          f"train CLI on the preprocessed files: {run['step']} steps, {fwd} forward / {bwd} "
+          f"backward launches")
+    for step, m in run["metrics"]:
+        check(all(np.isfinite(v) for v in m.values()), f"step {step}: finite metrics {m}")
+    log(f"[preprocess] train CLI {card} on the port's own props.pkl, IoU pkls and AGPL "
+        f"label_assign.pkl: 2 steps of {accum}, s/step {[round(s, 4) for s in run['loop_s']]}, "
+        f"launches forward {fwd}, backward {bwd}; total_loss "
+        f"{[round(m['total_loss'], 4) for _, m in run['metrics']]}")
+
+    # 7. PRMClassifierTrainer at full width
+    trainer = PRMClassifierTrainer(num_classes=20, base_lr=0.01, groups={"features": 0.01},
+                                   device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    torch_default_init_(trainer.model, gen)
+    _randomize_frozen_bn(trainer.model, gen)
+    before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    rng = np.random.RandomState(SEED + 10)
+    images = rng.randn(PRM_BATCH, 448, 448, 3).astype(np.float32)
+    targets = (rng.rand(PRM_BATCH, 20) < 0.15).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [trainer.step(images, targets).item()], []
+    for _ in range(PRM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.step(images, targets)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    after = trainer.model.state_dict()
+    moved = {k: (after[k] - before[k]).abs().max().item()
+             for k in ("classifier.0.weight", "features.0.weight")}
+    check(all(np.isfinite(losses)), f"PRM trainer losses {losses}")
+    check(0 < moved["features.0.weight"] < moved["classifier.0.weight"],
+          f"the classifier moved ({moved['classifier.0.weight']:.3g}) more than the features "
+          f"group ({moved['features.0.weight']:.3g})")
+    check(all(torch.equal(after[k], before[k]) for k in before if "running_" in k),
+          "frozen-BN statistics unchanged")
+    flops = 3 * 2 * 4.1e9 * (448 / 224) ** 2 * PRM_BATCH
+    log(f"[preprocess] PRMClassifierTrainer {card}: FCResNet50, 20 classes, {PRM_BATCH} x "
+        f"448x448 float32 (TF32 off): s/step median {np.median(secs):.4f} (each "
+        f"{[round(t, 4) for t in secs]}), {PRM_BATCH / np.median(secs):.1f} images/s (~{flops / 1e12:.2f} "
+        f"TFLOP a step: {flops / np.median(secs) / 1e12:.1f} TFLOP/s), peak device memory "
+        f"{peak_gb:.2f} GB; losses {[round(v, 5) for v in losses]}; max |change| classifier "
+        f"{moved['classifier.0.weight']:.3g}, features.0 {moved['features.0.weight']:.3g}")
+
+    return fwd, bwd
+
+
+def _profile_prm(mapper, image, gt_classes, threshold):
+    """Device time of one image's PRM block (inference_gt) by operator."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mapper.peak_threshold = threshold
+    mapper.inference_gt(image, gt_classes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = mapper.inference_gt(image, gt_classes)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    log(f"[profile] PRM block of one image ({out.num_peaks} peaks): device busy {device_ms:.1f} "
+        f"ms of {wall_ms:.1f} ms under the profiler")
+    log(events.table(sort_by="self_device_time_total", row_limit=15, max_name_column_width=70))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1451,6 +1808,13 @@ def main():
         roi_align_backward.kernel_launches = 0
         eval_cli_fwd = phase_eval_cli(work_dir, card, cli_paths, cli_ckpt)
         eval_cli_bwd = roi_align_backward.kernel_launches
+        # PyTorch's default cuDNN flag (TF32 allowed), as a user's process runs the
+        # preprocessing: the PRM classes turn TF32 off for their own calls
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            pre_fwd, pre_bwd = phase_preprocess(work_dir, card, cli_paths, profile=args.profile)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
         bodies = {body: phase_body(body, card, batched_dir, batched_props, profile=args.profile)
                   for body in BODIES}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -1465,7 +1829,7 @@ def main():
             "launches": train_fwd,
             "launches_by_path": {"eval": eval_launches, "eval_batched": batched_launches,
                                  "train": train_fwd, "train_cli": cli_fwd,
-                                 "eval_cli": eval_cli_fwd,
+                                 "eval_cli": eval_cli_fwd, "train_cli_pre": pre_fwd,
                                  **{f"eval_{b}": v[0] for b, v in bodies.items()},
                                  **{f"train_{b}": v[1] for b, v in bodies.items()}},
             **fwd_kernel,
@@ -1478,6 +1842,7 @@ def main():
             "launches": train_bwd,
             "launches_by_path": {"eval": 0, "eval_batched": 0, "train": train_bwd,
                                  "train_cli": cli_bwd, "eval_cli": eval_cli_bwd,
+                                 "train_cli_pre": pre_bwd,
                                  **{f"eval_{b}": 0 for b in bodies},
                                  **{f"train_{b}": v[2] for b, v in bodies.items()}},
             **bwd_kernel,

@@ -12,6 +12,9 @@ Serves three purposes:
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from cim_tpu_torch.ops.mask_iou import mask_iou_matrices
 
 
 def synthetic_masks(rng, n, h, w, min_frac=0.05, max_frac=0.6):
@@ -34,29 +37,18 @@ def synthetic_masks(rng, n, h, w, min_frac=0.05, max_frac=0.6):
     return masks, boxes
 
 
-def mask_matrices(masks):
-    """(iou, asy_iou) float32 matrices from (N, h, w) masks
-    (same math as cim_tpu.ops.mask_iou, on host for fixtures)."""
-    flat = masks.reshape(masks.shape[0], -1).astype(np.float32)
-    inter = flat @ flat.T
-    area = flat.sum(-1)
-    union = area[:, None] + area[None, :] - inter
-    iou = inter / np.maximum(union, 1)
-    asy = inter / np.maximum(area[None, :], 1)
-    return iou, asy
-
-
-def masks_to_7x7(masks, boxes):
-    """Rasterize full-res proposal masks to 7x7 bool crops, nearest-resize
+def masks_to_7x7(masks, boxes, size=7):
+    """Rasterize full-res proposal masks to size x size bool crops (7x7 by
+    default): each mask cropped to its inclusive box, nearest-resized
     (reference tools/pre/generate_7_7_voc.py:14-47 semantics)."""
     n = masks.shape[0]
-    out = np.zeros((n, 7, 7), bool)
+    out = np.zeros((n, size, size), bool)
     for i in range(n):
         x1, y1, x2, y2 = boxes[i].astype(int)
         crop = masks[i, y1 : y2 + 1, x1 : x2 + 1]
         h, w = crop.shape
-        ys = np.clip((np.arange(7) + 0.5) * h / 7, 0, h - 1).astype(int)
-        xs = np.clip((np.arange(7) + 0.5) * w / 7, 0, w - 1).astype(int)
+        ys = np.clip((np.arange(size) + 0.5) * h / size, 0, h - 1).astype(int)
+        xs = np.clip((np.arange(size) + 0.5) * w / size, 0, w - 1).astype(int)
         out[i] = crop[np.ix_(ys, xs)]
     return out
 
@@ -84,7 +76,7 @@ def make_microbatch(
     gh = min(h, mask_grid)
     gw = min(w, mask_grid)
     masks_full, boxes = synthetic_masks(rng, n_valid, gh, gw)
-    iou, asy = mask_matrices(masks_full)
+    iou, asy = (m.numpy() for m in mask_iou_matrices(torch.from_numpy(masks_full)))
     masks7 = masks_to_7x7(masks_full, boxes)
     # scale boxes from the mask grid up to image coordinates
     boxes = boxes * np.array(
@@ -182,8 +174,8 @@ def write_synthetic_train_dataset(data_dir, n_images, n_props, rng, image_hw=(96
     as a compressed .mat named by the VOC scheme of tools/evaluation.py
     (2012_000001.mat, maskmat[:, 0]), written in threads while the next
     image is drawn. iou_fn(masks (n, h, w) bool) -> (iou, asy) float
-    arrays; by default mask_matrices on the host (an O(n^2 h w) product:
-    pass one that runs on a card at full size). Returns {image_dir, ann,
+    arrays or CPU tensors; by default ops.mask_iou.mask_iou_matrices on the
+    CPU (an O(n^2 h w) product: pass one that runs on a card at full size). Returns {image_dir, ann,
     props, label_assign, iou_dir, asy_iou_dir, devkit_dir, cob_dir,
     cob_write_s (the seconds of each .mat write)}."""
     import json
@@ -196,7 +188,7 @@ def write_synthetic_train_dataset(data_dir, n_images, n_props, rng, image_hw=(96
     from cim_tpu_torch.data.voc_meta import classes_for
     from cim_tpu_torch.evaluation import rle as rle_util
 
-    iou_fn = iou_fn or mask_matrices
+    iou_fn = iou_fn or (lambda m: mask_iou_matrices(torch.from_numpy(m)))
     paths = {"image_dir": os.path.join(data_dir, "images"), "ann": os.path.join(data_dir, "ann.json"),
              "props": os.path.join(data_dir, "props.pkl"),
              "label_assign": os.path.join(data_dir, "label_assign.pkl"),

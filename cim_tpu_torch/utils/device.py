@@ -6,6 +6,8 @@ no silent fallback: asking for CUDA without a CUDA device is an error.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -31,3 +33,19 @@ def check_on(module: torch.nn.Module, device: torch.device, who: str):
                 f"{who} runs on {device}, but parameter {name} lies on "
                 f"{p.device}; build the model on the same device"
             )
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Float32 convolutions and products for the block: TF32 off in cuDNN
+    and cuBLAS (PyTorch's default allows it in cuDNN). The process-wide
+    flags are restored after it."""
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, b in zip(flags, before):
+            f.allow_tf32 = b

@@ -15,7 +15,8 @@ The bodies: ResNet-50 (inverse of convert_torchvision_resnet50 and the
 res1..res4 relabel), dilated VGG-16 (of convert_vgg16; the reference's
 ``conv{g}.{i}`` names, which cim_tpu reads as ``features.N`` after an
 ordered relabel) and HRNet (of convert_hrnet_w48), and cim_tpu's tiny
-test body.
+test body; and the PRM's FCResNet50 (prm_state_dict_from_jax, the inverse
+of convert_prm_checkpoint).
 """
 from __future__ import annotations
 
@@ -178,3 +179,30 @@ def _heads(sd, params, refine_times):
     for k in range(refine_times):
         _dense(sd, f"cls_iou_model.refine_cls.{k}", cp[f"refine_cls{k}"])
         _dense(sd, f"cls_iou_model.refine_iou.{k}", cp[f"refine_iou{k}"])
+
+
+_PRM_LAYERS = {"res2": ("features.4", 3), "res3": ("features.5", 4),
+               "res4": ("features.6", 6), "res5": ("features.7", 3)}
+
+
+def prm_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax FCResNet50 variables (cim_tpu.prm.model) -> the reference PRM's
+    state_dict (features.0 conv1, features.1 bn1, features.4-7 layer1-4,
+    classifier.0), which cim_tpu_torch.prm.model.FCResNet50 uses: the
+    exact inverse of cim_tpu's convert_prm_checkpoint."""
+    params, stats = variables["params"], variables.get("stats", {})
+    sd: Dict[str, torch.Tensor] = {"features.0.weight": _conv(params["res1_conv"])}
+    _bn(sd, "features.1", params["res1_bn"], stats["res1_bn"])
+    for stage, (layer, blocks) in _PRM_LAYERS.items():
+        for b in range(blocks):
+            p, s = params[f"{stage}_block{b}"], stats[f"{stage}_block{b}"]
+            pre = f"{layer}.{b}"
+            for i in (1, 2, 3):
+                sd[f"{pre}.conv{i}.weight"] = _conv(p[f"conv{i}"])
+                _bn(sd, f"{pre}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
+            if b == 0:
+                sd[f"{pre}.downsample.0.weight"] = _conv(p["downsample_conv"])
+                _bn(sd, f"{pre}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+    sd["classifier.0.weight"] = _conv(params["classifier"])
+    sd["classifier.0.bias"] = _tensor(params["classifier"]["bias"])
+    return sd

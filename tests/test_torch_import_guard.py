@@ -35,9 +35,18 @@ sys.exit(1 if bad else 0)
 """
 
 
+_PREPROCESSING = ["cim_tpu_torch.ops.mask_iou", "cim_tpu_torch.prm.modules",
+                  "cim_tpu_torch.prm.model", "cim_tpu_torch.prm.datasets",
+                  "cim_tpu_torch.prm.train", "cim_tpu_torch.utils.jax_weights",
+                  "cim_tpu_torch.tools.pre.generate_7_7", "cim_tpu_torch.tools.pre.create_cob_iou",
+                  "cim_tpu_torch.tools.pre.AGPL_label_assign",
+                  "cim_tpu_torch.tools.pre.point_level_label_assign"]
+
+
 @pytest.mark.parametrize("modules", [["package"], ["chip_smoke"],
-                                     ["cim_tpu_torch.models.vgg", "cim_tpu_torch.models.hrnet"]],
-                         ids=["slice", "chip_smoke", "bodies"])
+                                     ["cim_tpu_torch.models.vgg", "cim_tpu_torch.models.hrnet"],
+                                     _PREPROCESSING],
+                         ids=["slice", "chip_smoke", "bodies", "preprocessing"])
 def test_imports_load_no_jax(modules):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
