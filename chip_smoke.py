@@ -67,6 +67,34 @@ of which fails the run:
                    masks also written as COB .mat files): 6 steps at
                    iter_size 4, snapshots every 3; then a run resumed from
                    the step-3 snapshot against steps 4-6 of the first
+  ddp              data parallelism on the one card (parallel.launch, the
+                   Trainer's DistributedDataParallel wrapper): (1) two gloo
+                   ranks on cuda:0 (NCCL refuses two ranks on one card),
+                   the float32 full-width model, TF32 and anti-noise off,
+                   cuDNN's deterministic algorithms on both sides,
+                   train_reference's microbatch shape, against world-1
+                   Trainers in this process: (a) the same batch on both
+                   ranks, 2 steps: the ranks' parameters bit-equal, the
+                   metrics within rtol 1e-5 of world 1's, each tensor's
+                   momentum buffer within 1e-4 of its largest; (b) batches
+                   A and B, one step: each tensor's change (its momentum
+                   buffer, the step's change before rounding into the
+                   parameter) within 1e-4 of its largest of the mean of
+                   world-1 runs on A and on B; one forward and one
+                   backward launch a microbatch in each rank; then the
+                   bf16 model on both ranks, scale-480 batches of 2000
+                   proposals, 2 warm and 2 timed steps: s/step and peak
+                   memory of each rank (beside a step with the gradients
+                   set to None, not zeroed in DDP's buckets), two ranks
+                   sharing one card (not multi-GPU speed); (2) the training CLI under torchrun's
+                   environment (RANK 0, WORLD_SIZE 1: DDP over NCCL) for
+                   the train_cli phase's 6 steps on its set: metrics within
+                   1e-5 relative of that phase's, the snapshot's keys bare
+                   and loaded by a world-1 Trainer, s/step beside
+                   train_cli's; (3) BatchedEvaluator over devices [cuda:0,
+                   cuda:0] against one device on eval_batched's float32
+                   two-image stack (rtol 2e-3, atol 2e-5), one forward
+                   launch a sub-stack and pass
   eval_cli         the eval CLIs' main() in turn, from the train CLI's
                    step-6 snapshot over the same 8 images: test_net at the
                    shipped EVAL_BATCH 8 (one stack: 10 forward launches,
@@ -139,6 +167,7 @@ import argparse
 import json
 import os
 import pickle
+import socket
 import subprocess
 import tempfile
 import time
@@ -147,6 +176,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from cim_tpu_torch import parallel
 from cim_tpu_torch.config import clone_cfg, load_cfg
 from cim_tpu_torch.data import catalog
 from cim_tpu_torch.data.loader import _bucket_hw, proposal_bucket
@@ -274,6 +304,8 @@ PRM_CPU_PEAKS = 8  # peaks of the card-vs-CPU response-map check (8 copies at 44
 PRM_BATCH = 16  # the PRM classifier's training batch at 448x448
 PRM_STEPS = 3
 PRM_MEMORY_CAP_GB = 20.0  # one pass of MAX_PEAKS image copies must stay under it
+DDP_TIMED_STEPS = 2  # the two-rank run's timed steps, after two warm ones
+DDP_CLI_STEPS = CLI_STEPS  # the CLI's steps at world size 1 over NCCL, against train_cli's
 
 
 def log(msg):
@@ -729,16 +761,13 @@ class _TimedBatchedEvaluator(BatchedEvaluator):
         return sum(s for s, _ in self.seconds) / sum(n for _, n in self.seconds)
 
 
-def phase_batched_reference(cfg, model):
-    """The full-width model in float32, TF32 off, on the card:
-    BatchedEvaluator against Evaluator on two images of different sizes in
-    one stack (hflip + identity), rtol 2e-3, atol 2e-5."""
+def _batched_reference_setup(cfg):
+    """phase_batched_reference's float32 config (hflip + identity at scale
+    160) and its stack of two images of different sizes, 64 proposals."""
     cfg = clone_cfg(cfg)
     cfg.TPU.PRECISION = "f32"
     cfg.TEST.SCALE = 160
     cfg.TEST.BBOX_AUG.SCALES = ()
-    m = build_model(cfg, device="cuda")
-    m.load_state_dict({k: v.detach() for k, v in model.state_dict().items()})
     rng = np.random.RandomState(SEED + 5)
     items = []
     for h, w in ((120, 160), (112, 150)):  # one bucket (128x256), one ratio bucket (0.75)
@@ -747,6 +776,16 @@ def phase_batched_reference(cfg, model):
                           np.minimum(y1 + rng.uniform(8, 70, 64), h - 1)], -1).astype(np.float32)
         items.append((rng.randint(0, 256, (h, w, 3)).astype(np.uint8), boxes,
                       (rng.rand(64, 7, 7) > 0.4).astype(np.float32)))
+    return cfg, items
+
+
+def phase_batched_reference(cfg, model):
+    """The full-width model in float32, TF32 off, on the card:
+    BatchedEvaluator against Evaluator on two images of different sizes in
+    one stack (hflip + identity), rtol 2e-3, atol 2e-5."""
+    cfg, items = _batched_reference_setup(cfg)
+    m = build_model(cfg, device="cuda")
+    m.load_state_dict({k: v.detach() for k, v in model.state_dict().items()})
     got = BatchedEvaluator(cfg, m, 2, device="cuda").im_detect_all_many(items)
     sequential = Evaluator(cfg, m, device="cuda")
     errs = []
@@ -1278,7 +1317,286 @@ def phase_train_cli(work_dir, card, profile=False):
     log(f"[train_cli] resumed from {os.path.basename(snapshot)}: steps {CLI_SNAPSHOT}-"
         f"{CLI_STEPS - 1} give the uninterrupted run's metrics (worst relative difference "
         f"{worst:.3g}); total_loss {[round(m['total_loss'], 6) for _, m in resumed['metrics']]}")
-    return fwd, bwd, paths, os.path.join(out, "ckpt")
+    cli = {"flags": flags, "metrics": run["metrics"], "s_step": float(np.median(loop))}
+    return fwd, bwd, paths, os.path.join(out, "ckpt"), cli
+
+
+# ------------------------------------------------------------- data parallel
+
+def _ddp_reference_cfg():
+    """phase_train_reference's float32 config (anti-noise off), one
+    microbatch a step."""
+    cfg = _train_cfg()
+    cfg.TPU.PRECISION = "f32"
+    cfg.TPU.GRAD_ACCUM = 1
+    cfg.Anti_noise_sampling = False
+    return cfg
+
+
+def _ddp_batches():
+    """Three steps' batches of train_reference's small microbatch (a
+    128x160 image, 64 proposals): the one both ranks share, A and B."""
+    rng = np.random.RandomState(SEED + 7)
+    return [{k: v[None] for k, v in make_microbatch(
+        rng, image_hw=(128, 160), n_props=64, n_valid=60, num_classes=20).items()}
+        for _ in range(3)]
+
+
+def _seeded_trainer(cfg, device, seed):
+    """A trainer with seeded random weights and frozen-BN statistics: the
+    same on every rank and in this process."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    trainer = Trainer(cfg, device=device, seed=SEED, init_generator=gen)
+    _randomize_frozen_bn(trainer.model, gen)
+    return trainer
+
+
+def _momentum(trainer):
+    """The SGD momentum buffers on the host: after the first step, the
+    step's change over -lr, before it is rounded into the parameters."""
+    return {n: b.cpu() for (n, _), b in zip(trainer.optimizer.params, trainer.optimizer.buf)}
+
+
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms, TF32 off: its float32 weight
+    gradients otherwise sum in an order that changes from run to run, which
+    phase ddp's float32 checks would read as a difference between ranks."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                      allow_tf32=False)
+
+
+def _ddp_rank(device, ref_cfg, batches, timed_cfg):
+    """One of phase ddp's two gloo ranks on one card: (a) 2 float32 steps
+    on the shared batch, (b) one on batch A (rank 0) or B (rank 1), each
+    from the seeded weights; then the bf16 timed run on the rank's own
+    scale-480 batch. Returns each run's metrics and launches, whether the
+    rank's parameters equal rank 1's bit for bit, and from rank 0 the
+    parameters and momentum buffers."""
+    import gc
+
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = parallel.rank()
+
+    def run(batch, steps, keep_params):
+        roi_align.kernel_launches = roi_align_backward.kernel_launches = 0
+        trainer = _seeded_trainer(ref_cfg, device, SEED + 7)
+        metrics = [trainer.step(batch) for _ in range(steps)]
+        out = {"metrics": metrics, "launches": (roi_align.kernel_launches,
+                                                roi_align_backward.kernel_launches)}
+        equal = True
+        for p in trainer.model.parameters():
+            q = p.detach().clone()
+            dist.broadcast(q, src=1)
+            equal = equal and torch.equal(q, p.detach())
+        out["equal_to_rank1"] = equal
+        if rank == 0:
+            out["momentum"] = _momentum(trainer)
+            if keep_params:
+                out["params"] = {n: p.detach().cpu() for n, p in trainer.model.named_parameters()}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    with _deterministic_cudnn():
+        result = {"same": run(batches[0], 2, True), "mean": run(batches[1 + rank], 1, False)}
+    batch = _train_batch(timed_cfg, np.random.RandomState(SEED + 10 + rank), TRAIN_SCALES[0],
+                         TRAIN_N_VALID[0])
+    trainer = _seeded_trainer(timed_cfg, device, SEED + 4)
+    torch.cuda.reset_peak_memory_stats()
+    # warm: DDP's first step allocates the gradients, its second rebuilds the buckets
+    _timed_steps(trainer, batch, 2)
+    warm_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    roi_align.kernel_launches = roi_align_backward.kernel_launches = 0
+    timed = _timed_steps(trainer, batch, DDP_TIMED_STEPS)
+    result["timed"] = {"s": [t for t, _, _ in timed], "metrics": timed[-1][1],
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "warm_peak_gb": warm_peak,
+                       "launches": (roi_align.kernel_launches, roi_align_backward.kernel_launches)}
+    # for comparison, not on the main path: one step with the gradients set
+    # to None, as a trainer without DDP zeroes them, so that each step
+    # allocates them anew and the reducer copies them into its buckets
+    optimizer = trainer.optimizer
+    optimizer.zero_grad = lambda set_to_none=True: type(optimizer).zero_grad(optimizer, True)
+    torch.cuda.reset_peak_memory_stats()
+    _timed_steps(trainer, batch, 1)
+    result["timed"]["set_to_none_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return result
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_ddp(work_dir, card, cli):
+    """Data parallelism (parallel.launch, engine.train's DDP wrapper) on
+    the one card: (1) two gloo ranks on cuda:0, float32 full width, TF32
+    and anti-noise off, cuDNN's deterministic algorithms on both sides,
+    against world-1 Trainers here: (a) both on the
+    same batch, 2 steps: the ranks' parameters bit-equal, the metrics
+    within rtol 1e-5 of world 1's, the momentum buffers (the steps' summed
+    changes) within 1e-4 of each tensor's largest; (b) batches A and B, one
+    step: each tensor's first-step change (its momentum buffer) within
+    1e-4 of its largest of the mean of world-1 runs on A and on B; both
+    kernels launched in both ranks; then the bf16 model timed on two
+    ranks sharing the card. (2) The training CLI under torchrun's
+    environment at world size 1 over NCCL, DDP_CLI_STEPS steps of the
+    train_cli phase's set: its metrics within 1e-5 relative of that
+    phase's, its snapshot (one, at the end) free of ``module.`` keys and
+    loaded by a world-1 Trainer; its s/step beside train_cli's.
+    (3) BatchedEvaluator over devices ["cuda:0", "cuda:0"] against one
+    device on phase_batched_reference's stack. Returns the launches of
+    the CLI's run and of the two-rank timed run (both ranks)."""
+    t_phase = time.perf_counter()
+    ref_cfg, batches = _ddp_reference_cfg(), _ddp_batches()
+    refs = {}
+    for name, batch, steps in (("same", batches[0], 2), ("A", batches[1], 1),
+                               ("B", batches[2], 1)):
+        trainer = _seeded_trainer(ref_cfg, "cuda", SEED + 7)
+        with _deterministic_cudnn():
+            metrics = [trainer.step(batch) for _ in range(steps)]
+        refs[name] = {"metrics": metrics, "momentum": _momentum(trainer),
+                      "params": {n: p.detach().cpu() for n, p in trainer.model.named_parameters()}
+                      if name == "same" else None}
+        del trainer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel.launch(_ddp_rank, 2, "cuda:0", args=(ref_cfg, batches, _train_cfg()),
+                            backend="gloo")
+    ranks_s = time.perf_counter() - t0
+
+    for r in (0, 1):
+        for name, steps in (("same", 2), ("mean", 1)):
+            got = ranks[r][name]
+            check(got["equal_to_rank1"], f"ddp ({name}): rank {r}'s parameters equal rank 1's")
+            check(got["launches"] == (steps, steps),
+                  f"ddp ({name}) rank {r}: launches {got['launches']} for {steps} step(s)")
+        for got, want in zip(ranks[r]["same"]["metrics"], refs["same"]["metrics"]):
+            for k, v in want.items():
+                check(abs(got[k] - v) <= 1e-6 + 1e-5 * abs(v),
+                      f"ddp (a) rank {r}: {k} {got[k]} vs world 1 {v}")
+    # the detector's softmax runs over proposals, so its per-class bias
+    # has a zero gradient but for rounding (as in phase train)
+    skip = "cls_iou_model.detector.bias"
+
+    def worst(got, want):
+        errs = []
+        for n, w in want.items():
+            if n == skip:
+                continue
+            w = w.cuda()
+            scale = w.abs().max().item()
+            err = (got[n].cuda() - w).abs().max().item()
+            errs.append((err / max(scale, 1e-30), n, err, scale))
+        errs.sort(reverse=True)
+        over = [f"{n} by {e:.3g} of {sc:.3g}" for r, n, e, sc in errs if r > 1e-4]
+        check(not over, f"ddp: {len(over)} tensors differ by more than 1e-4 of their max: "
+                        f"{over[:5]}")
+        return errs[0][:2]
+
+    same = ranks[0]["same"]
+    bit_equal = sum(torch.equal(same["params"][n], p) for n, p in refs["same"]["params"].items())
+    param_err = max((same["params"][n] - p).abs().max().item()
+                    for n, p in refs["same"]["params"].items())
+    worst_a = worst(same["momentum"], refs["same"]["momentum"])
+    mean = {n: (refs["A"]["momentum"][n] + refs["B"]["momentum"][n]) / 2
+            for n in refs["A"]["momentum"]}
+    worst_b = worst(ranks[0]["mean"]["momentum"], mean)
+    log(f"[ddp] two gloo ranks on cuda:0 (parallel.launch, DDP), float32 full width, "
+        f"{sum(p.numel() for p in refs['same']['params'].values()):,} parameters: (a) the same "
+        f"batch on both ranks, 2 steps: ranks' parameters bit-equal; losses "
+        f"{[round(m['total_loss'], 6) for m in same['metrics']]} vs world 1 "
+        f"{[round(m['total_loss'], 6) for m in refs['same']['metrics']]}; parameters bit-equal "
+        f"to world 1's in {bit_equal} of {len(refs['same']['params'])} tensors (max |diff| "
+        f"{param_err:.3g}); momentum worst {worst_a[0]:.3g} of its tensor's max ({worst_a[1]})")
+    log(f"[ddp] (b) batches A and B, one step: each tensor's change (momentum buffer) against "
+        f"the mean of world-1 runs on A and B: worst {worst_b[0]:.3g} of its tensor's max "
+        f"({worst_b[1]}); launches a rank (forward, backward): "
+        f"{[ranks[r]['mean']['launches'] for r in (0, 1)]}; {ranks_s:.1f} s for the spawned ranks")
+    timed = [ranks[r]["timed"] for r in (0, 1)]
+    for r, t in enumerate(timed):
+        check(t["launches"] == (DDP_TIMED_STEPS * _train_cfg().TPU.GRAD_ACCUM,) * 2,
+              f"ddp timed rank {r}: launches {t['launches']}")
+        check(all(np.isfinite(v) for v in t["metrics"].values()), f"ddp timed rank {r}: finite")
+    log(f"[ddp] {card}: TWO RANKS SHARING ONE CARD (gloo moves the gradients through host "
+        f"memory; not multi-GPU speed): resnet50_voc bf16 full width, GRAD_ACCUM 4, scale-480 "
+        f"batches of 2000 proposals, s/step of each rank {[[round(s, 4) for s in t['s']] for t in timed]}"
+        f" (median {np.median([s for t in timed for s in t['s']]):.4f}), peak device memory a rank "
+        f"over the timed steps {[round(t['peak_gb'], 2) for t in timed]} GB (gradients zeroed in "
+        f"place, DDP's bucket views; over the 2 warm steps {[round(t['warm_peak_gb'], 2) for t in timed]}"
+        f"; a step with the gradients set to None {[round(t['set_to_none_peak_gb'], 2) for t in timed]}"
+        f"), total_loss "
+        f"{[round(t['metrics']['total_loss'], 4) for t in timed]}")
+    del refs, ranks
+
+    # the CLI at world size 1 over NCCL, as torchrun would start it
+    flags = list(cli["flags"])
+    flags[flags.index("TRAIN.SNAPSHOT_ITERS") + 1] = "1000"  # one snapshot, at the end
+    out = os.path.join(work_dir, "train_ddp_out")
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    roi_align.kernel_launches = roi_align_backward.kernel_launches = 0
+    try:
+        run = train_cli.main(flags + ["--max_iter", str(DDP_CLI_STEPS), "--output_dir", out])
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    fwd, bwd = roi_align.kernel_launches, roi_align_backward.kernel_launches
+    check(run["world"] == 1 and run["ddp"], "the torchrun CLI ran one rank under DDP")
+    check(fwd == bwd == DDP_CLI_STEPS * 4, f"ddp CLI: {fwd} / {bwd} launches")
+    check([s for s, _ in run["metrics"]] == list(range(DDP_CLI_STEPS)), "ddp CLI steps")
+    rel = 0.0
+    for (step, got), (_, want) in zip(run["metrics"], cli["metrics"]):
+        for k, v in want.items():
+            rel = max(rel, abs(got[k] - v) / max(abs(v), 1e-30))
+            check(abs(got[k] - v) <= 1e-6 + 1e-5 * abs(v),
+                  f"ddp CLI step {step}: {k} {got[k]} vs train_cli {v}")
+    snapshot = os.path.join(out, "ckpt", f"model_step{DDP_CLI_STEPS}.pth")
+    state = torch.load(snapshot, map_location="cpu", weights_only=True)["model"]
+    check(not any(k.startswith("module.") for k in state), "the DDP snapshot's keys are bare")
+    cfg, _ = train_cli._configure(train_cli.parse_args(flags))
+    single = Trainer(cfg, device="cuda")
+    load_ckpt(os.path.dirname(snapshot), single, DDP_CLI_STEPS)
+    check(single.ddp is None and single.step_count == DDP_CLI_STEPS, "snapshot loads at world 1")
+    del single, state
+    s_step = float(np.median(run["loop_s"][1:]))  # no step writes a snapshot
+    log(f"[ddp] {card}: the training CLI under torchrun's environment (WORLD_SIZE 1, NCCL, DDP): "
+        f"{DDP_CLI_STEPS} steps equal the train_cli phase's (worst relative difference "
+        f"{rel:.3g}); s/step median {s_step:.4f} over steps 2-{DDP_CLI_STEPS} (each step "
+        f"{[round(s, 4) for s in run['loop_s']]}, the first warms up) against train_cli's "
+        f"{cli['s_step']:.4f} (steps without a snapshot) in this process; "
+        f"launches {fwd} / {bwd}; its snapshot's keys bare, loaded by a world-1 Trainer")
+
+    # a stack split over two devices (here both cuda:0)
+    cfg32, items = _batched_reference_setup(_train_cfg())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    m = build_model(cfg32, device="cuda", generator=gen)
+    _randomize_frozen_bn(m, gen)
+    want = BatchedEvaluator(cfg32, m, 2, device="cuda").im_detect_all_many(items)
+    roi_align.kernel_launches = 0
+    got = BatchedEvaluator(cfg32, m, 2, devices=["cuda:0", "cuda:0"]).im_detect_all_many(items)
+    passes = len(Evaluator.tta_pass_list(cfg32))
+    check(roi_align.kernel_launches == 2 * passes,
+          f"ddp eval: {roi_align.kernel_launches} forward launches, one a sub-stack and pass")
+    err = 0.0
+    for (g, _), (w, _) in zip(got, want):
+        err = max(err, float(np.abs(g - w).max()))
+        np.testing.assert_allclose(g, w, rtol=2e-3, atol=2e-5)
+    del m
+    log(f"[ddp] BatchedEvaluator over devices [cuda:0, cuda:0], float32 full width, a stack of 2 "
+        f"images in 2 sub-stacks, {passes} TTA passes: {2 * passes} forward launches; against "
+        f"one device max_abs_err {err:.3g}; phase {time.perf_counter() - t_phase:.1f} s")
+    return fwd, bwd, sum(t["launches"][0] for t in timed), sum(t["launches"][1] for t in timed)
 
 
 def _is_proposal_mask(segm, masks, boxes) -> bool:
@@ -1802,8 +2120,9 @@ def main():
         del evaluator
         phase_train_reference()
         train_fwd, train_bwd = phase_train(card, work_dir, profile=args.profile)
-        cli_fwd, cli_bwd, cli_paths, cli_ckpt = phase_train_cli(work_dir, card,
-                                                                profile=args.profile)
+        cli_fwd, cli_bwd, cli_paths, cli_ckpt, cli = phase_train_cli(work_dir, card,
+                                                                     profile=args.profile)
+        ddp_fwd, ddp_bwd, gloo2_fwd, gloo2_bwd = phase_ddp(work_dir, card, cli)
         roi_align.kernel_launches = 0
         roi_align_backward.kernel_launches = 0
         eval_cli_fwd = phase_eval_cli(work_dir, card, cli_paths, cli_ckpt)
@@ -1829,6 +2148,7 @@ def main():
             "launches": train_fwd,
             "launches_by_path": {"eval": eval_launches, "eval_batched": batched_launches,
                                  "train": train_fwd, "train_cli": cli_fwd,
+                                 "train_ddp": ddp_fwd, "train_ddp_gloo2": gloo2_fwd,
                                  "eval_cli": eval_cli_fwd, "train_cli_pre": pre_fwd,
                                  **{f"eval_{b}": v[0] for b, v in bodies.items()},
                                  **{f"train_{b}": v[1] for b, v in bodies.items()}},
@@ -1841,7 +2161,8 @@ def main():
             "replaces": "cim_tpu/ops/pallas/roi_align_kernel.py:169",
             "launches": train_bwd,
             "launches_by_path": {"eval": 0, "eval_batched": 0, "train": train_bwd,
-                                 "train_cli": cli_bwd, "eval_cli": eval_cli_bwd,
+                                 "train_cli": cli_bwd, "train_ddp": ddp_bwd,
+                                 "train_ddp_gloo2": gloo2_bwd, "eval_cli": eval_cli_bwd,
                                  "train_cli_pre": pre_bwd,
                                  **{f"eval_{b}": 0 for b in bodies},
                                  **{f"train_{b}": v[2] for b, v in bodies.items()}},

@@ -182,6 +182,13 @@ class TrainLoader:
     MinibatchSampler loader.py:87-104 + scale choice minibatch.py:112).
     Groups same-bucket images so microbatches stack; a background thread
     keeps `prefetch` batches ready.
+
+    In a data-parallel run each rank builds one over its own strided
+    shard (parallel.host_shard_roidb) with the run's seed, as each host
+    of cim_tpu's --multihost does: rank r permutes its shard with
+    RandomState(seed), and ranks with shards of one length draw the same
+    scale sequence, so their buckets, and step times, match. A resumed
+    run passes start=step on every rank.
     """
 
     def __init__(self, cfg, roidb, grad_accum: int, seed: int = 3,

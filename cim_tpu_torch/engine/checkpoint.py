@@ -11,6 +11,14 @@ generator seeds pick up where the saved one stopped. Evaluation reads the
 model alone (load_model_weights). save_ckpt writes to a temporary file and
 renames it, so a reader, wait_for_checkpoint's among them, never sees half
 a checkpoint.
+
+In a data-parallel run every rank calls save_ckpt and only rank 0 writes;
+the others wait at a barrier until the file is there, so that no rank
+moves on to read it, or to a step, before the write ends. Every rank
+reads the same checkpoint. The model's state_dict is the bare module's
+(Trainer.model, not its DistributedDataParallel wrapper), without a
+``module.`` prefix: a snapshot of any world size loads at any other, in
+test_net and in cim_tpu's converter.
 """
 from __future__ import annotations
 
@@ -21,13 +29,22 @@ import time
 
 import torch
 
+from cim_tpu_torch import parallel
+
 logger = logging.getLogger(__name__)
 
 _NAME = re.compile(r"model_step(\d+)\.pth$")
 
 
-def save_ckpt(ckpt_dir: str, trainer, extra: dict | None = None) -> str:
-    """Write the trainer's state; returns the file's path."""
+def save_ckpt(ckpt_dir: str, trainer, extra: dict | None = None,
+              sync: bool = True) -> str | None:
+    """Write the trainer's state on rank 0; returns the file's path there,
+    None on the other ranks. sync: in a group, end at a barrier (a crash
+    save passes False: the other ranks may never reach it)."""
+    if parallel.rank() != 0:
+        if sync:
+            parallel.barrier()
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"model_step{trainer.step_count}.pth")
     payload = {
@@ -40,6 +57,8 @@ def save_ckpt(ckpt_dir: str, trainer, extra: dict | None = None) -> str:
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)  # a reader never sees half a checkpoint
+    if sync:
+        parallel.barrier()
     return path
 
 

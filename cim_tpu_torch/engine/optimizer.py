@@ -64,9 +64,16 @@ class _Optimizer:
         """(weight decay, LR multiplier) of a parameter."""
         return (self.bias_wd, self.bias_mult) if is_bias(name) else (self.wd, 1.0)
 
-    def zero_grad(self):
-        for _, p in self.params:
-            p.grad = None
+    def zero_grad(self, set_to_none: bool = True):
+        """Drop the gradients, or zero them in place (where they are views
+        of DDP's buckets, which must stay so)."""
+        if set_to_none:
+            for _, p in self.params:
+                p.grad = None
+        else:
+            grads = [p.grad for _, p in self.params if p.grad is not None]
+            if grads:
+                torch._foreach_zero_(grads)
 
     def _buffers(self):
         raise NotImplementedError

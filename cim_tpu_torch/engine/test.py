@@ -14,11 +14,13 @@ onto a canvas of 64-multiples sized by the image's aspect bucket, and
 proposals pad to a multiple of 256 with a validity mask. Evaluator runs
 one image at a time; BatchedEvaluator stacks the images that share a
 bucket and runs every pass of the stack as one forward (cim_tpu's vmap,
-written out as a batch axis). The per-pass host path (which needs cv2),
-and with it the non-fused batched path, is not ported yet.
+written out as a batch axis), split over TPU.EVAL_DEVICES cards. The
+per-pass host path (which needs cv2), and with it the non-fused batched
+path, is not ported yet.
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -223,11 +225,27 @@ class BatchedEvaluator(Evaluator):
     size: eager PyTorch has no fixed shape to meet, and a repeated image
     changes no other image's scores. The non-fused batched path (stacks of
     single passes) needs the per-pass Evaluator path and is not ported.
+
+    devices: the cards a stack is split over (cim_tpu's mesh over
+    TPU.EVAL_DEVICES, the reference's DataParallel test model). The model
+    lies on the first; each other device holds a copy with the same
+    weights (a device named twice shares the model). Each stack splits
+    into contiguous sub-stacks, one a device, dispatched in turn, so the
+    cards run them at once; batch_size rounds up to a multiple of the
+    device count, as cim_tpu's does. One device is the single-card path.
     """
 
-    def __init__(self, cfg, model, batch_size: int | None = None, device="cuda"):
-        super().__init__(cfg, model, device=device)
-        self.batch_size = int(batch_size or cfg.TPU.EVAL_BATCH)
+    def __init__(self, cfg, model, batch_size: int | None = None, device="cuda",
+                 devices=None):
+        devices = [torch.device(d) for d in devices] if devices else [resolve_device(device)]
+        super().__init__(cfg, model, device=devices[0])
+        n = len(devices)
+        self.batch_size = -(-int(batch_size or cfg.TPU.EVAL_BATCH) // n) * n
+        # the evaluator of each sub-stack: this one, then one a device
+        self._replicas = [self] + [
+            BatchedEvaluator(cfg, model if d == devices[0] else copy.deepcopy(model).to(d),
+                             self.batch_size, device=d)
+            for d in devices[1:]]
 
     def _batched_supported(self) -> bool:
         aug = self.cfg.TEST.BBOX_AUG
@@ -273,16 +291,28 @@ class BatchedEvaluator(Evaluator):
             total = sc if total is None else total + sc
         return total / float(len(passes))
 
-    def _run_stack(self, group):
-        """group: [(item index, request)] of one key -> [(index, scores)]."""
+    def _dispatch(self, group):
+        """Queue a stack's passes on this evaluator's device; returns the
+        scores on the device."""
         reqs = [r for _, r in group]
         dev = self.device
         stacked = [torch.from_numpy(np.stack([r[k] for r in reqs])).to(dev)
                    for k in ("image", "rois", "masks", "valid")]
-        scores = self._fused_forward_batched(
-            *stacked, [(r["im_h"], r["im_w"]) for r in reqs], reqs[0]["ratio_hw"]
-        ).cpu().numpy()
-        return [(idx, scores[i][: req["n"]]) for i, (idx, req) in enumerate(group)]
+        return self._fused_forward_batched(
+            *stacked, [(r["im_h"], r["im_w"]) for r in reqs], reqs[0]["ratio_hw"])
+
+    def _run_stack(self, group):
+        """group: [(item index, request)] of one key -> [(index, scores)].
+        Contiguous sub-stacks of near-equal size, one a device, all
+        dispatched before the first is read."""
+        size = -(-len(group) // len(self._replicas))
+        parts = [group[i: i + size] for i in range(0, len(group), size)]
+        queued = [(part, rep._dispatch(part)) for part, rep in zip(parts, self._replicas)]
+        out = []
+        for part, scores in queued:
+            scores = scores.cpu().numpy()
+            out += [(idx, scores[i][: req["n"]]) for i, (idx, req) in enumerate(part)]
+        return out
 
     def _fused_batched_many(self, items):
         out = [None] * len(items)

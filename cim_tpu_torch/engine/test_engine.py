@@ -12,8 +12,9 @@ cross-image BatchedEvaluator in windows of 4 x EVAL_BATCH. The host's
 NMS and limit (or CorLoc argmax) of each image runs in one worker thread
 (_AsyncPost) while the card runs the next images. multi_process_inference
 is the reference's fan-out over child processes (the test_net CLI's
---multi_proc); every child sees the same devices. Multi-GPU eval
-(TPU.EVAL_DEVICES over more than one card) is not ported yet.
+--multi_proc); with more than one visible card, child i sees card
+i % n alone, as the reference's lib/utils/subprocess.py pins them.
+TPU.EVAL_DEVICES splits each batched stack over cards (eval_devices).
 """
 from __future__ import annotations
 
@@ -49,6 +50,27 @@ def get_roidb_and_dataset(cfg, dataset_name, proposal_file, ind_range=None):
 def empty_results(num_classes, num_images):
     """all_boxes[cls][image] = N x 5 [x1, y1, x2, y2, score]."""
     return [[[] for _ in range(num_images)] for _ in range(num_classes + 1)]
+
+
+def eval_devices(cfg, device: torch.device) -> list:
+    """The devices TPU.EVAL_DEVICES asks for (cim_tpu
+    engine/test_engine.py:127-147): -1 every visible card, n up to the
+    visible count (above it cim_tpu's warning, and what there is), 1 the
+    model's device alone. ``device`` first (cuda means cuda:0), then the
+    other cards in order. The CPU counts as one device."""
+    n = int(cfg.TPU.get("EVAL_DEVICES", 1) or 1)
+    if n == 1:
+        return [device]
+    local = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n > local:
+        logger.warning("TPU.EVAL_DEVICES=%d exceeds the %d local devices; using %d",
+                       n, local, local)
+    if device.type == "cpu":
+        return [device]
+    n = local if n < 0 else min(n, local)
+    first = device.index or 0
+    return [torch.device("cuda", first)] + [
+        torch.device("cuda", i) for i in range(local) if i != first][: n - 1]
 
 
 def _det_basename(check_corloc: bool) -> str:
@@ -127,20 +149,13 @@ def test_net(
     # range pickle, so it runs no worker
     post = _AsyncPost(cfg, check_corloc) if ind_range is None else None
     eval_batch = int(cfg.TPU.EVAL_BATCH or 1)
-    eval_devices = int(cfg.TPU.get("EVAL_DEVICES", 1) or 1)
     if eval_batch > 1:
-        # cross-image batched TTA (engine.test.BatchedEvaluator)
-        if eval_devices != 1:
-            device = resolve_device(device)
-            local = torch.cuda.device_count() if device.type == "cuda" else 1
-            if local > 1:
-                raise NotImplementedError(
-                    f"TPU.EVAL_DEVICES={eval_devices} over {local} visible cards: "
-                    "multi-GPU eval is not ported yet; set TPU.EVAL_DEVICES to 1"
-                )
-            logger.warning("TPU.EVAL_DEVICES=%d with %d local device; using 1",
-                           eval_devices, local)
-        evaluator = evaluator or BatchedEvaluator(cfg, model, eval_batch, device=device)
+        # cross-image batched TTA (engine.test.BatchedEvaluator), each
+        # stack split over the TPU.EVAL_DEVICES cards
+        if evaluator is None:
+            devices = eval_devices(cfg, resolve_device(device))
+            logger.info("eval devices: %s", [str(d) for d in devices])
+            evaluator = BatchedEvaluator(cfg, model, eval_batch, devices=devices)
         window = 4 * evaluator.batch_size
         for w0 in range(0, num_images, window):
             chunk = roidb[w0: w0 + window]
@@ -160,7 +175,7 @@ def test_net(
                 start_ind + num_images, ave, int((num_images - done) * ave),
             )
     else:
-        if eval_devices != 1:
+        if int(cfg.TPU.get("EVAL_DEVICES", 1) or 1) != 1:
             logger.warning("TPU.EVAL_DEVICES has no effect with TPU.EVAL_BATCH <= 1; "
                            "running the sequential single-device evaluator")
         evaluator = evaluator or Evaluator(cfg, model, device=device)
@@ -273,6 +288,18 @@ def _post_process_and_evaluate(cfg, all_scores, roidb, dataset, output_dir,
     return results, all_boxes, all_scores
 
 
+def child_env(i: int, env: dict, n_cards: int) -> dict:
+    """The environment of --multi_proc child i: with more than one visible
+    card, CUDA_VISIBLE_DEVICES names card i % n_cards alone (of the
+    parent's own CUDA_VISIBLE_DEVICES where it has one; the reference's
+    lib/utils/subprocess.py); with one card or none, ``env`` as it is."""
+    if n_cards <= 1:
+        return env
+    visible = env.get("CUDA_VISIBLE_DEVICES")
+    cards = visible.split(",") if visible else [str(c) for c in range(n_cards)]
+    return {**env, "CUDA_VISIBLE_DEVICES": cards[i % n_cards].strip()}
+
+
 def multi_process_inference(cfg, child_argv, n_procs, output_dir, check_corloc=False,
                             check_expected_results=False):
     """The reference's fan-out over processes (multi_gpu_test_net_on_dataset,
@@ -281,9 +308,9 @@ def multi_process_inference(cfg, child_argv, n_procs, output_dir, check_corloc=F
     ``python -m cim_tpu_torch.tools.test_net *child_argv --range s e`` per
     range, wait for every child, require each to exit 0, merge their range
     pickles into one and post-process and evaluate in this process. The
-    children inherit the environment (and see the same devices); this
-    package's root joins their PYTHONPATH so that they import it. Returns
-    (results, all_boxes, all_scores)."""
+    children inherit the environment (child_env: one card each when there
+    are several); this package's root joins their PYTHONPATH so that they
+    import it. Returns (results, all_boxes, all_scores)."""
     import subprocess
     import sys
 
@@ -296,6 +323,7 @@ def multi_process_inference(cfg, child_argv, n_procs, output_dir, check_corloc=F
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    n_cards = torch.cuda.device_count()
     procs = []
     for i in range(n_procs):
         s, e = eval_index_range(n, i, n_procs)
@@ -304,7 +332,7 @@ def multi_process_inference(cfg, child_argv, n_procs, output_dir, check_corloc=F
         cmd = [sys.executable, "-m", "cim_tpu_torch.tools.test_net", *child_argv,
                "--range", str(s), str(e)]
         logger.info("spawning shard [%d, %d): %s", s, e, " ".join(cmd))
-        procs.append((s, e, subprocess.Popen(cmd, env=env)))
+        procs.append((s, e, subprocess.Popen(cmd, env=child_env(i, env, n_cards))))
     # wait for every child before judging any: failing at the first would
     # leave the others running, each holding its device
     failed = [(s, e, rc) for s, e, p in procs if (rc := p.wait()) != 0]

@@ -12,17 +12,32 @@ not divided; the logged losses are the per-microbatch mean.
 Mining runs on the device without gradient. Its randomness (anti-noise
 sampling) comes from one torch.Generator on the device, reseeded for each
 (seed, step, microbatch, branch), so a resumed run draws what the
-uninterrupted one would have. Multi-device data parallelism is not ported.
+uninterrupted one would have.
+
+Data parallelism (cim_tpu's shard_map step, engine/train.py:218-288):
+when a torch.distributed group exists (parallel.launch), the trainer
+wraps its model in DistributedDataParallel. Each rank sums the gradients
+of its microbatches, the first A - 1 under no_sync(), and the last
+microbatch's backward all-reduces the sums; DDP's division by the world
+size makes that cim_tpu's pmean of the per-rank sums, and every rank then
+applies the same update. The logged metrics are the mean over ranks, all-
+reduced on the device. Each rank draws its own anti-noise stream: with
+more than one rank its seeds take the rank (cim_tpu folds the dp index
+into its key). Without a group the step is the single-device one.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import warnings
 from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
+from cim_tpu_torch import parallel
 from cim_tpu_torch.engine.optimizer import lr_schedule, make_optimizer
 from cim_tpu_torch.mining.cim import MiningParams, PseudoLabels, cim_layer
 from cim_tpu_torch.mining.losses import cls_iou_loss, mil_bag_loss, pcl_loss
@@ -154,7 +169,10 @@ def metrics_to_floats(metrics) -> Dict[str, float]:
 
 class Trainer:
     """Model, optimizer and the train step on one device: the card unless
-    the caller passes device="cpu".
+    the caller passes device="cpu". In a process group it is one rank of
+    a data-parallel run (see the module's docstring): ``model`` stays the
+    bare CIMModel, and ``ddp`` is its DistributedDataParallel wrapper (None
+    without a group).
 
     step(batch) takes arrays with a leading GRAD_ACCUM axis (the layout of
     data.loader.TrainLoader and data.synthetic.make_train_batch with one
@@ -180,7 +198,18 @@ class Trainer:
                                  train=True)
         self.optimizer = make_optimizer(
             cfg, [(n, p) for n, p in self.model.named_parameters() if p.requires_grad])
-        self.loss_fn = make_loss_fn(cfg, self.model)
+        self.rank, self.world = parallel.rank(), parallel.world_size()
+        self.ddp = None
+        if dist.is_initialized():
+            # frozen BN statistics never change: no buffer broadcast a step;
+            # the gradients live in DDP's buckets, without a copy, as long
+            # as step_async zeroes them in place
+            with warnings.catch_warnings():  # newer PyTorch renames broadcast_buffers
+                warnings.simplefilter("ignore", FutureWarning)
+                self.ddp = torch.nn.parallel.DistributedDataParallel(
+                    self.model, device_ids=[self.device] if self.device.type == "cuda" else None,
+                    broadcast_buffers=False, gradient_as_bucket_view=True)
+        self.loss_fn = make_loss_fn(cfg, self.ddp or self.model)
         self.generator = torch.Generator(device=self.device)
         self.step_count = 0
         self.last_nms_rounds: list = []  # NMS rounds of the last step's minings
@@ -217,21 +246,36 @@ class Trainer:
         reads step i's after it has dispatched step i + 1. Mining's greedy
         NMS still waits for the card once a round."""
         accum = batch["labels"].shape[0]
-        self.optimizer.zero_grad()
+        self.optimizer.zero_grad(set_to_none=self.ddp is None)
         self.last_nms_rounds = []
         sums = None
         for i in range(accum):
-            total, losses = self.loss_fn(
-                self.microbatch(batch, i), self.generator,
-                derive_seed(self.seed, self.step_count, i), self.last_nms_rounds)
-            with record_function("cim.backward"):
-                total.backward()  # gradients sum over microbatches in .grad
+            # in a group, only the last microbatch's backward all-reduces
+            # the gradients summed in .grad
+            last = self.ddp is None or i == accum - 1
+            with contextlib.nullcontext() if last else self.ddp.no_sync():
+                total, losses = self.loss_fn(
+                    self.microbatch(batch, i), self.generator, self.mining_seed(i),
+                    self.last_nms_rounds)
+                with record_function("cim.backward"):
+                    total.backward()  # gradients sum over microbatches in .grad
             vals = torch.stack([v.detach().float() for v in losses.values()])
             sums = vals if sums is None else sums + vals
+        means = sums / accum
+        if self.ddp is not None:
+            # gloo has no AVG: a sum, then the division, on the device
+            dist.all_reduce(means)
+            means = means / self.world
         lr = lr_schedule(self.cfg, self.step_count)
         with record_function("cim.optimizer"):
             self.optimizer.step(lr)
         self.step_count += 1
-        metrics = dict(zip(losses.keys(), (sums / accum).unbind()))
+        metrics = dict(zip(losses.keys(), means.unbind()))
         metrics["lr"] = lr
         return metrics
+
+    def mining_seed(self, microbatch: int) -> int:
+        """The anti-noise seed of a microbatch of the next step: (seed,
+        step, microbatch), and the rank when there is more than one."""
+        ranks = (self.rank,) if self.world > 1 else ()
+        return derive_seed(self.seed, self.step_count, microbatch, *ranks)

@@ -1,4 +1,4 @@
-"""Inference and detection-evaluation CLI on one CUDA card (port of
+"""Inference and detection-evaluation CLI on CUDA cards (port of
 tools/test_net.py).
 
     python -m cim_tpu_torch.tools.test_net --cfg configs/resnet50_voc.yaml \\
@@ -12,7 +12,9 @@ image (NMS and limit, or the CorLoc argmax) and evaluates, as cim_tpu's
 CLI does: the same flags, dataset presets, outputs and EXPECTED_RESULTS
 gate (a failed gate raises, so the command exits non-zero). --range runs
 one slice and writes its range pickle without evaluating; --multi_proc N
-runs N such children and merges them here. --load_ckpt reads only the
+runs N such children and merges them here, one card each where there
+are several. TPU.EVAL_DEVICES splits each batched stack over that many
+cards of this process (-1: every visible card). --load_ckpt reads only the
 model of a checkpoint of the training CLI (a directory: its latest step;
 or one model_step<n>.pth), --wait first waits for one to appear.
 """
@@ -35,7 +37,7 @@ logger = logging.getLogger("cim_tpu_torch.tools.test_net")
 def parse_args(argv=None):
     # allow_abbrev=False: parent mode passes its own argv to the children
     # without --multi_proc, and an abbreviation (--multi 2) would survive
-    parser = argparse.ArgumentParser(description="Test CIM (PyTorch, one CUDA card)",
+    parser = argparse.ArgumentParser(description="Test CIM (PyTorch, CUDA cards)",
                                      allow_abbrev=False)
     parser.add_argument("--dataset", help="voc2012sbdval | voc2012trainaug | coco2017val | "
                         "coco2017testdev")

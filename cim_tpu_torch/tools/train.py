@@ -1,4 +1,4 @@
-"""CIM training CLI on one CUDA card (port of tools/train.py).
+"""CIM training CLI on CUDA cards (port of tools/train.py).
 
     python -m cim_tpu_torch.tools.train --dataset voc2012trainaug \\
         --cfg configs/resnet50_voc.yaml
@@ -6,6 +6,8 @@
         --max_iter 20                   # smoke run without data on disk
     python -m cim_tpu_torch.tools.train --device cpu --cfg configs/resnet50_voc.yaml \\
         --set MODEL.CONV_BODY tiny.conv_body ...   # on the CPU, the tiny body
+    torchrun --nnodes 2 --nproc_per_node 8 ... -m cim_tpu_torch.tools.train \\
+        --multihost --cfg ...           # across nodes, one process a card
 
 The reference's training contract, as cim_tpu's CLI keeps it: dataset
 presets, a cfg yaml with --set overrides, LR and step rescaling by the
@@ -16,10 +18,17 @@ and only then reads and logs step i - 1's metrics, so the host builds and
 dispatches the next step while the card runs this one. Batches of the
 real data path come from data.loader.TrainLoader in pinned host memory.
 
-Ported for one card: TPU.DATA_PARALLEL above 1 and --multihost raise
-(multi-GPU training is not ported yet). Unlike cim_tpu's CLI, a resumed
-run (--load_ckpt --resume) continues the loader's batch sequence where
-the checkpoint left it, so that it reproduces the uninterrupted run.
+Data parallelism: TPU.DATA_PARALLEL ranks, one a card (0, the shipped
+configs' value, means every visible card; 1 on the CPU), started by
+parallel.launch (spawned here, or by torchrun; --multihost requires
+torchrun), over NCCL between cards and gloo on the CPU. The world size
+rescales the LR, the steps and the snapshot period as cim_tpu's device
+count does. Each rank reads its own strided shard of the roidb
+(parallel.host_shard_roidb) with its own loader; rank 0 alone writes the
+config pickle, the snapshots and tensorboard, and logs. main() returns
+rank 0's summary. Unlike cim_tpu's CLI, a resumed run (--load_ckpt
+--resume) continues each rank's batch sequence where the checkpoint left
+it, so that it reproduces the uninterrupted run.
 """
 from __future__ import annotations
 
@@ -34,7 +43,9 @@ import traceback
 import numpy as np
 import torch
 
+from cim_tpu_torch import parallel
 from cim_tpu_torch.config import assert_and_infer_cfg, cfg_from_file, cfg_from_list, get_default_cfg
+from cim_tpu_torch.data import catalog
 from cim_tpu_torch.engine.checkpoint import checkpoint_location, load_ckpt, save_ckpt
 from cim_tpu_torch.engine.stats import TrainingStats, setup_logging
 from cim_tpu_torch.engine.train import Trainer, metrics_to_floats
@@ -46,7 +57,7 @@ PROFILE_STEPS = (5, 10)  # --profile_dir traces steps [5, 10)
 
 
 def parse_args(argv=None):
-    parser = argparse.ArgumentParser(description="Train CIM (PyTorch, one CUDA card)")
+    parser = argparse.ArgumentParser(description="Train CIM (PyTorch, CUDA cards)")
     parser.add_argument("--dataset", help="voc2012trainaug | coco2017train")
     parser.add_argument("--cfg", dest="cfg_file", required=True)
     parser.add_argument("--set", dest="set_cfgs", nargs="+", default=None,
@@ -80,7 +91,8 @@ def parse_args(argv=None):
     parser.add_argument("--synth_valid", type=int, default=300,
                         help="synthetic valid-proposal count")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host training (not ported: raises)")
+                        help="launched by torchrun across nodes (TPU.DATA_PARALLEL: 0 for "
+                        "every rank it started)")
     parser.add_argument("--profile_dir", default=None,
                         help="write a torch.profiler trace of steps 5-10 there")
     parser.add_argument("--debug", action="store_true")
@@ -126,6 +138,33 @@ class _TensorBoard:
         self._writer.close()
 
 
+def resolve_world(data_parallel, device: torch.device, multihost: bool = False) -> int:
+    """The run's ranks from TPU.DATA_PARALLEL (cim_tpu: ``or
+    len(jax.devices())``): 0 means every visible card on cuda (every rank
+    torchrun started, with --multihost) and 1 on the CPU; n means n, and on
+    cuda n above the visible cards raises (the CLI puts one rank on each
+    card). Under torchrun its WORLD_SIZE must be that number."""
+    n = int(data_parallel or 0)
+    env_world = os.environ.get("WORLD_SIZE")
+    if multihost:
+        if env_world is None:
+            raise RuntimeError("--multihost means launched by torchrun across nodes; "
+                               "WORLD_SIZE is not set")
+        n = n or int(env_world)
+    elif device.type == "cuda":
+        visible = torch.cuda.device_count()
+        if n > visible:
+            raise RuntimeError(f"TPU.DATA_PARALLEL={n} ranks, one a card, but {visible} "
+                               "card(s) are visible")
+        n = n or visible
+    else:
+        n = n or 1
+    if env_world is not None and int(env_world) != n:
+        raise RuntimeError(f"torchrun started WORLD_SIZE={env_world} ranks, but "
+                           f"TPU.DATA_PARALLEL resolves to {n}")
+    return n
+
+
 def _configure(args):
     cfg = get_default_cfg()
     cfg_from_file(cfg, args.cfg_file)
@@ -141,12 +180,7 @@ def _configure(args):
         raise ValueError(f"Unexpected args.dataset: {args.dataset}")
     if args.debug:
         cfg.DEBUG = True
-    if args.multihost or int(cfg.TPU.DATA_PARALLEL or 1) > 1:
-        raise NotImplementedError(
-            "multi-GPU training (--multihost, TPU.DATA_PARALLEL > 1) is not ported yet; "
-            "the port trains on one card"
-        )
-    n_devices = 1
+    n_devices = resolve_world(cfg.TPU.DATA_PARALLEL, torch.device(args.device), args.multihost)
     cfg.TPU.DATA_PARALLEL = n_devices
     # --bs rescales the LR and steps as cim_tpu's does; a microbatch is one image
     batch_size = args.batch_size or n_devices * cfg.TRAIN.IMS_PER_BATCH
@@ -166,8 +200,8 @@ def _configure(args):
     return cfg, n_devices
 
 
-def _data(cfg, args, device, start: int):
-    """(iterator of step batches, the loader or None)."""
+def _data(cfg, args, device, start: int, rank: int = 0, world: int = 1):
+    """(iterator of this rank's step batches, the loader or None)."""
     if args.synthetic:
         from cim_tpu_torch.data.synthetic import make_train_batch
 
@@ -180,15 +214,17 @@ def _data(cfg, args, device, start: int):
         )
 
         def batches():
+            # cim_tpu's (devices, accum) batch from one generator; the rank's row
             while True:
-                batch = make_train_batch(rng, 1, args.iter_size, **kw)
-                yield {k: v[0] for k, v in batch.items()}
+                batch = make_train_batch(rng, world, args.iter_size, **kw)
+                yield {k: v[rank] for k, v in batch.items()}
 
         return batches(), None
     from cim_tpu_torch.data.loader import TrainLoader
     from cim_tpu_torch.data.roidb import combined_roidb_for_training
 
     roidb, _, _ = combined_roidb_for_training(cfg)
+    roidb = parallel.host_shard_roidb(roidb, rank, world)
     loader = TrainLoader(cfg, roidb, args.iter_size, seed=args.seed,
                          prefetch=cfg.DATA_LOADER.PREFETCH,
                          pin_memory=device.type == "cuda", start=start)
@@ -247,44 +283,74 @@ class _Profile:
 
 
 def main(argv=None, profile_steps=PROFILE_STEPS):
-    """Train; profile_steps: the [first, last) steps --profile_dir traces.
-    Returns a summary of the run: its output_dir, the final
-    step, each step's metrics as logged, the steps that wrote a snapshot,
-    host times (the wait for the loader and the loop's time a step, and
-    the loader's build time a batch) and the profile's."""
+    """Train; profile_steps: the [first, last) steps --profile_dir traces
+    (on rank 0). Returns a summary of the run (rank 0's, or under torchrun
+    this process's rank's): its output_dir, the final step, each step's
+    metrics as logged (the mean over ranks), its world size and whether
+    the trainer ran under DDP, the steps that wrote a snapshot, the files
+    this rank wrote, host times (the wait for the
+    loader and the loop's time a step, and the loader's build time a
+    batch) and the profile's. With ranks spawned here, "ranks" holds every
+    rank's summary."""
     setup_logging()
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg, n_devices = _configure(args)
+    # timestamped run dir (reference lib/utils/misc.py get_run_name), named
+    # once for every rank
+    run_name = "%s_%s_step" % (time.strftime("%b%d-%H-%M-%S"), socket.gethostname())
+    output_dir = args.output_dir or os.path.join(
+        cfg.OUTPUT_DIR, os.path.splitext(os.path.basename(args.cfg_file))[0], run_name)
+    # spawned ranks import the catalog afresh: hand them this process's
+    results = parallel.launch(_train, n_devices, device,
+                              args=(args, cfg, output_dir, profile_steps, dict(catalog.DATASETS)))
+    summary = dict(results[min(results)])
+    if len(results) > 1:
+        summary["ranks"] = [results[r] for r in sorted(results)]
+    return summary
 
+
+def _train(device, args, cfg, output_dir, profile_steps, datasets):
+    """One rank's run (the whole run at world size 1)."""
+    setup_logging()  # a spawned rank starts from a fresh interpreter
+    catalog.DATASETS.update(datasets)
+    rank, world = parallel.rank(), parallel.world_size()
+    if rank != 0:
+        logging.getLogger().setLevel(logging.WARNING)  # rank 0 logs the run
     trainer = Trainer(cfg, device=device, seed=args.seed,
                       init_generator=torch.Generator(device=device).manual_seed(args.seed))
     _load_weights(trainer, args)
     step = trainer.step_count
-    loader_iter, loader = _data(cfg, args, device, start=step if args.resume else 0)
+    loader_iter, loader = _data(cfg, args, device, start=step if args.resume else 0,
+                                rank=rank, world=world)
 
-    # timestamped run dir (reference lib/utils/misc.py get_run_name)
-    run_name = "%s_%s_step" % (time.strftime("%b%d-%H-%M-%S"), socket.gethostname())
-    output_dir = args.output_dir or os.path.join(
-        cfg.OUTPUT_DIR, os.path.splitext(os.path.basename(args.cfg_file))[0], run_name)
     ckpt_dir = os.path.join(output_dir, "ckpt")
-    do_save = not args.no_save
-    if do_save:
+    do_save = not args.no_save  # every rank calls save_ckpt; rank 0 writes
+    summary = {"output_dir": output_dir, "world": world, "ddp": trainer.ddp is not None,
+               "metrics": [], "loader_wait_s": [], "loop_s": [], "snapshots": [],
+               "written": [], "profile": None}
+    if do_save and rank == 0:
         os.makedirs(output_dir, exist_ok=True)
-        with open(os.path.join(output_dir, "config_and_args.pkl"), "wb") as f:
+        path = os.path.join(output_dir, "config_and_args.pkl")
+        with open(path, "wb") as f:
             pickle.dump({"cfg": dict(cfg), "args": vars(args)}, f)
+        summary["written"].append(path)
 
     tb_writer = None
-    if args.use_tfboard and do_save:
+    if args.use_tfboard and do_save and rank == 0:
         try:
             tb_writer = _TensorBoard(output_dir)
         except Exception as e:  # the tensorboard package may be missing
             logger.warning("tensorboard writer unavailable: %s", e)
 
     training_stats = TrainingStats(args.disp_interval, tb_writer)
-    period = snapshot_period(cfg, n_devices, args.iter_size)
-    summary = {"output_dir": output_dir, "metrics": [], "loader_wait_s": [],
-               "loop_s": [], "snapshots": [], "profile": None}
+    period = snapshot_period(cfg, world, args.iter_size)
+
+    def save(sync=True):
+        path = save_ckpt(ckpt_dir, trainer, sync=sync)
+        if path is not None:
+            summary["written"].append(path)
+
     saved_at = None
     profiler = None
     pending = None  # (step index, device metrics): the one-deep pipeline
@@ -314,7 +380,7 @@ def main(argv=None, profile_steps=PROFILE_STEPS):
         logger.info("Training starts!")
         t_loop = time.perf_counter()
         while step < cfg.SOLVER.MAX_ITER:
-            if args.profile_dir and step == profile_steps[0] and profiler is None:
+            if args.profile_dir and rank == 0 and step == profile_steps[0] and profiler is None:
                 profiler = _Profile(args.profile_dir, device)
             if profiler is not None and step >= profile_steps[1]:
                 stop_profile()
@@ -331,7 +397,7 @@ def main(argv=None, profile_steps=PROFILE_STEPS):
                 training_stats.iter_toc()
             pending = (step - 1, metrics_dev)
             if do_save and step % period == 0:
-                save_ckpt(ckpt_dir, trainer)
+                save()
                 saved_at = step
                 summary["snapshots"].append(step)
             now = time.perf_counter()
@@ -341,18 +407,20 @@ def main(argv=None, profile_steps=PROFILE_STEPS):
         if profiler is not None:
             stop_profile()
         if do_save and saved_at != step:
-            save_ckpt(ckpt_dir, trainer)
+            save()
         logger.info("Training done at step %d", step)
     except (RuntimeError, KeyboardInterrupt):
         # crash-save (reference tools/train.py:450-456), after the pending
-        # metrics: the last completed step's state is what is saved
+        # metrics: the last completed step's state is what is saved, by
+        # rank 0 and without a barrier (the other ranks may not reach one);
+        # parallel.launch then tears the group down
         try:
             flush_pending(force=True)
         except Exception:  # the read itself may be what failed
             logger.warning("pending metrics unrecoverable on crash")
         logger.info("Save ckpt on exception ...")
         if do_save:
-            save_ckpt(ckpt_dir, trainer)
+            save(sync=False)
         print(traceback.format_exc())
     finally:
         if tb_writer is not None:

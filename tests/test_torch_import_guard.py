@@ -2,8 +2,9 @@
 
 Checked in a fresh interpreter (this test process has JAX and cim_tpu
 loaded already: tests/conftest.py imports them): importing every module
-of the cim_tpu_torch package, or chip_smoke, must load no new module whose
-top-level name is cim_tpu, jax, jaxlib or flax. The port keeps its own
+of the cim_tpu_torch package, or chip_smoke, or the rank functions that
+the data-parallel tests spawn (tests/torch_ddp_ranks.py), must load no new
+module whose top-level name is cim_tpu, jax, jaxlib or flax. The port keeps its own
 copies of the JAX-free host code it needs.
 """
 import os
@@ -43,10 +44,16 @@ _PREPROCESSING = ["cim_tpu_torch.ops.mask_iou", "cim_tpu_torch.prm.modules",
                   "cim_tpu_torch.tools.pre.point_level_label_assign"]
 
 
+# the data-parallel path, and the rank functions its tests spawn (each
+# spawned rank imports their module: it must start without JAX)
+_DDP = ["cim_tpu_torch.parallel", "cim_tpu_torch.engine.train", "cim_tpu_torch.tools.train",
+        "tests.torch_ddp_ranks"]
+
+
 @pytest.mark.parametrize("modules", [["package"], ["chip_smoke"],
                                      ["cim_tpu_torch.models.vgg", "cim_tpu_torch.models.hrnet"],
-                                     _PREPROCESSING],
-                         ids=["slice", "chip_smoke", "bodies", "preprocessing"])
+                                     _PREPROCESSING, _DDP],
+                         ids=["slice", "chip_smoke", "bodies", "preprocessing", "ddp"])
 def test_imports_load_no_jax(modules):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

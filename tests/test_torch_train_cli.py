@@ -70,12 +70,30 @@ def test_rescaled_solver_and_snapshots(tmp_path, iter_size):
     assert [s for s, _ in summary["metrics"]] == list(range(max_iter))
 
 
-def test_refuses_multi_gpu(tmp_path):
-    base = ["--cfg", YAML, "--device", "cpu", "--synthetic", "--output_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        train_cli.main(base + ["--multihost"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        train_cli.main(base + ["--set", "TPU.DATA_PARALLEL", "2"])
+def test_refuses_multi_gpu(tmp_path, monkeypatch):
+    """The refusals of multi-GPU training that remain: more ranks than
+    visible cards on cuda (one rank a card), --multihost without
+    torchrun's environment, and a torchrun WORLD_SIZE other than
+    TPU.DATA_PARALLEL's. TPU.DATA_PARALLEL 0 means every visible card."""
+    def world(device, data_parallel, *extra):
+        args = train_cli.parse_args(["--cfg", YAML, "--device", device, "--synthetic", *extra,
+                                     "--set", "TPU.DATA_PARALLEL", str(data_parallel)])
+        return train_cli._configure(args)[1]
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="1 card"):
+        world("cuda", 2)
+    assert world("cuda", 0) == 1 and world("cpu", 0) == 1 and world("cpu", 2) == 2
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert world("cuda", 0) == 4 and world("cuda", 2) == 2
+    with pytest.raises(RuntimeError, match="torchrun"):
+        train_cli.main(["--cfg", YAML, "--device", "cpu", "--synthetic", "--output_dir",
+                        str(tmp_path), "--multihost"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2"):
+        world("cpu", 1)
+    assert world("cpu", 2) == 2 and world("cuda", 0, "--multihost") == 2
 
 
 @pytest.fixture(scope="module")
