@@ -48,6 +48,30 @@ of which fails the run:
                    over 16 synthetic 375x500 images (two stacks, 20
                    forward launches), and at EVAL_BATCH 1 over the same
                    images, s/image of both
+  eval_paths       every other eval configuration cim_tpu evaluates, at
+                   full width over eval_batched's images (RoIAlign forward
+                   launches counted from 0 around each path): (1) the
+                   per-pass path (TPU.FUSED_TTA off; cv2 host resizes)
+                   against the fused one, float32, 2 images x 10 passes
+                   (cim_tpu's bound: rtol 5e-3, atol 5e-4, correlation >
+                   0.9999); (2) one float32 pass, card vs CPU (rtol 2e-3,
+                   atol 2e-5); (3) the non-fused batched path (stacks of 8
+                   single passes) against per-pass in float32 over 8 images
+                   (cim_tpu's rtol 1e-5, atol 1e-7), then bf16 s/image of
+                   per-pass, non-fused and fused on the same images; (4)
+                   UNION/UNION and UNION with an aspect-ratio pass (0.75)
+                   and its hflip: (M * N, C) and (M * N, 4), each block
+                   within rtol 1e-6 of its pass's own call (cuDNN
+                   deterministic), NMS finite; (5) roi_pool at the 1200
+                   pass's map bit-equal to the CPU, its time, one RoIPoolF
+                   eval image and one RoIPoolF Trainer.step (finite losses,
+                   Conv_Body moved, no RoIAlign launch); (6) the int8 head:
+                   int8_conv_nhwc and int8_dense at MaskFuse's shapes, the
+                   int32 sums of the first 256 rows bit-equal to the CPU's
+                   and outputs within 1 ulp, one-call times beside the
+                   bf16 conv and addmm with bounds, and TPU.EVAL_INT8 at
+                   EVAL_BATCH 8 over 16 images beside bf16 (scores within
+                   cim_tpu's max 0.05, mean 0.005; s/image, peak memory)
   train_reference  the full-width model in float32, TF32 off, anti-noise
                    off: one microbatch (a 128x160 image, 64 proposals) on
                    the card (both kernels) against the CPU (plain
@@ -153,8 +177,9 @@ under torch.profiler and its device time by operator, by phase
 (cim.forward, cim.losses, cim.mining, cim.backward, cim.optimizer) and of
 each of the port's kernels is printed, and the CLI's sixth step is traced
 (its device busy share); for each other body, one eval stack and one
-train step are profiled the same way; and one image's PRM block (the
-AGPL CLI's peaks and response maps) is profiled for its device time.
+train step are profiled the same way; one image's PRM block (the AGPL
+CLI's peaks and response maps) is profiled for its device time; and
+phase eval_paths profiles one per-pass image and one EVAL_INT8 stack.
 
 The card's nvidia-smi name and power limit come on the [device] line and
 again on a line of their own; the line before the last is a JSON object
@@ -246,7 +271,7 @@ BWD_F32_REL = 1e-5
 # the H100 SXM's published peaks: HBM bytes/s, and
 # operations/s by input type (bf16 on the tensor cores; f32 outside them)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 # the forward kernel's cases, drawn in this order from one generator seeded
 # with SEED: (name, features, valid, scale, N, dtype, sampling_ratio, cap)
 ROI_ALIGN_CASES = [
@@ -306,6 +331,15 @@ PRM_STEPS = 3
 PRM_MEMORY_CAP_GB = 20.0  # one pass of MAX_PEAKS image copies must stay under it
 DDP_TIMED_STEPS = 2  # the two-rank run's timed steps, after two warm ones
 DDP_CLI_STEPS = CLI_STEPS  # the CLI's steps at world size 1 over NCCL, against train_cli's
+# phase eval_paths: the per-pass / fused pair's images; the card-vs-CPU
+# pass's proposals and the int8 products' rows the CPU recomputes (the
+# CPU's cost); cim_tpu's bounds for the pairs it holds
+PER_PASS_IMAGES = 2
+CPU_PER_PASS_PROPS = 512
+CPU_ROWS = 256
+FUSED_TOL = dict(rtol=5e-3, atol=5e-4)  # tests/test_batched_eval.py:90
+BATCHED_TOL = dict(rtol=1e-5, atol=1e-7)  # tests/test_batched_eval.py:67
+INT8_MAX_DEV, INT8_MEAN_DEV = 0.05, 0.005  # tests/test_int8_eval.py:106-107
 
 
 def log(msg):
@@ -982,9 +1016,9 @@ def _log_port_kernels(events, device_ms=None):
         log(f"[profile] {name}: device {ms:.3f} ms in {sum(e.count for e in found)} launches{share}")
 
 
-def phase_profile(evaluator, entry):
+def phase_profile(evaluator, entry, tag="one image"):
     """Device time of one image's TTA by operator, against the median
-    unprofiled s/image of the main path (the device's busy share)."""
+    unprofiled s/image of ``evaluator`` (the device's busy share)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -996,7 +1030,7 @@ def phase_profile(evaluator, entry):
     events = prof.key_averages()
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA) / 1e3
-    log(f"[profile] one image: device busy {device_ms:.1f} ms of the {median_ms:.1f} ms "
+    log(f"[profile] {tag}: device busy {device_ms:.1f} ms of the {median_ms:.1f} ms "
         f"median unprofiled image ({100 * device_ms / median_ms:.1f} %)")
     _log_port_kernels(events, device_ms)
     log(events.table(sort_by="self_device_time_total", row_limit=30, max_name_column_width=70))
@@ -2094,6 +2128,335 @@ def _profile_prm(mapper, image, gt_classes, threshold):
     log(events.table(sort_by="self_device_time_total", row_limit=15, max_name_column_width=70))
 
 
+# ------------------------------------------------------------ eval paths
+
+def _eval_items(roidb, n):
+    return [(_image_loader(e), e["boxes"], e["masks"]) for e in roidb[:n]]
+
+
+def _per_pass_cfg(cfg, **aug):
+    """``cfg`` on the per-pass path (TPU.FUSED_TTA off), with the given
+    TEST.BBOX_AUG fields."""
+    cfg = clone_cfg(cfg)
+    cfg.TPU.FUSED_TTA = False
+    for k, v in aug.items():
+        cfg.TEST.BBOX_AUG[k] = v
+    return cfg
+
+
+def _deviation(got, want):
+    """max and mean of |got - want| over lists of score arrays."""
+    d = np.concatenate([np.abs(g - w).ravel() for g, w in zip(got, want)])
+    return float(d.max()), float(d.mean())
+
+
+def _within_ulp(got, want) -> bool:
+    """Every element of the card's float32 tensor within 1 ulp of the CPU's."""
+    g, w = got.cpu().numpy(), want.numpy()
+    return bool((np.abs(g - w) <= np.spacing(np.abs(w))).all())
+
+
+def phase_eval_paths(card, model, data_dir, props, profile=False):
+    """Every eval configuration cim_tpu evaluates, at full width
+    (resnet50_voc, the main path's seeded weights, the eval_batched
+    phase's 375x500 images with 2000 proposals): (1) per-pass against
+    fused, (2) per-pass card against CPU, (3) the non-fused batched path,
+    (4) UNION and aspect-ratio TTA, (5) RoIPool, (6) the dynamic int8 head.
+    Returns {path: (RoIAlign forward launches, backward launches)}, each
+    path's counted from 0 around its own run."""
+    from cim_tpu_torch.engine.test import box_results_with_nms_and_limit
+    from cim_tpu_torch.ops import quant
+    from cim_tpu_torch.ops.roi_align import roi_pool
+
+    t_phase = time.perf_counter()
+    cfg = _smoke_cfg(data_dir, props)
+    cfg.TEST.DATASETS = ("chip_smoke_batched",)
+    roidb = get_roidb_and_dataset(cfg, cfg.TEST.DATASETS[0], props)[0]
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    passes = Evaluator.tta_pass_list(cfg)
+    items = _eval_items(roidb, EVAL_BATCH)
+    launches = {}
+
+    def counted(path, fn, fwd):
+        """fn() with the kernels' counts set to 0 just before and read just
+        after: ``fwd`` forward launches and no backward one."""
+        roi_align.kernel_launches = roi_align_backward.kernel_launches = 0
+        out = fn()
+        launches[path] = (roi_align.kernel_launches, roi_align_backward.kernel_launches)
+        check(launches[path] == (fwd, 0),
+              f"{path}: (forward, backward) launches {launches[path]}, want ({fwd}, 0)")
+        return out
+
+    # (1) per-pass against fused: float32, TF32 off, the shipped 10 passes
+    cfg32 = clone_cfg(cfg)
+    cfg32.TPU.PRECISION = "f32"
+    m32 = build_model(cfg32, device="cuda")
+    m32.load_state_dict(state)
+    per32 = Evaluator(_per_pass_cfg(cfg32), m32, device="cuda")
+    want = counted("eval_per_pass", lambda: [per32.im_detect_all(*it)
+                                             for it in items[:PER_PASS_IMAGES]],
+                   PER_PASS_IMAGES * len(passes))
+    got = [Evaluator(cfg32, m32, device="cuda").im_detect_all(*it)
+           for it in items[:PER_PASS_IMAGES]]
+    corr = [float(np.corrcoef(g.ravel(), w.ravel())[0, 1]) for (g, _), (w, _) in zip(got, want)]
+    dmax, dmean = _deviation([g for g, _ in got], [w for w, _ in want])
+    log(f"[eval_paths] float32, {len(passes)} passes, {PER_PASS_IMAGES} images: fused vs "
+        f"per-pass max_abs_err {dmax:.3g}, mean {dmean:.3g}, correlation "
+        f"{[round(c, 7) for c in corr]} (cim_tpu's bound: rtol 5e-3, atol 5e-4, > 0.9999)")
+    for (gs, gb), (ws, wb) in zip(got, want):
+        check(gs.shape == ws.shape == (N_PROPS, cfg.MODEL.NUM_CLASSES) and np.array_equal(gb, wb),
+              "per-pass and fused: shapes and boxes")
+        np.testing.assert_allclose(gs, ws, **FUSED_TOL)
+    check(min(corr) > 0.9999, "per-pass and fused scores correlate")
+
+    # (2) per-pass, card against CPU: one pass (TTA off), float32
+    one = _per_pass_cfg(cfg32, ENABLED=False)
+    sub = (items[0][0], items[0][1][:CPU_PER_PASS_PROPS], items[0][2][:CPU_PER_PASS_PROPS])
+    s_card, _ = Evaluator(one, m32, device="cuda").im_detect_all(*sub)
+    m_cpu = build_model(one, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in state.items()})
+    t0 = time.perf_counter()
+    s_cpu, _ = Evaluator(one, m_cpu, device="cpu").im_detect_all(*sub)
+    cpu_s = time.perf_counter() - t0
+    del m_cpu
+    log(f"[eval_paths] float32 one pass at scale {one.TEST.SCALE}, {CPU_PER_PASS_PROPS} "
+        f"proposals: card vs CPU max_abs_err {np.abs(s_card - s_cpu).max():.3g} (scores up "
+        f"to {s_cpu.max():.3g}; the CPU's pass {cpu_s:.1f} s; bound rtol 2e-3, atol 2e-5)")
+    np.testing.assert_allclose(s_card, s_cpu, rtol=2e-3, atol=2e-5)
+
+    # (3) non-fused batched against per-pass: one window of EVAL_BATCH
+    # images; their 10 passes fall in 5 buckets (a scale and its hflip),
+    # each 16 passes, so 10 stacks of 8
+    nf32 = BatchedEvaluator(_per_pass_cfg(cfg32), m32, EVAL_BATCH, device="cuda")
+    stacked = counted("eval_nonfused_batched", lambda: nf32.im_detect_all_many(items),
+                      len(passes))
+    single = [per32.im_detect_all(*it) for it in items]
+    dmax, dmean = _deviation([g for g, _ in stacked], [w for w, _ in single])
+    ratio = max(float((np.abs(g - w) / (BATCHED_TOL["atol"] + BATCHED_TOL["rtol"] * np.abs(w)))
+                      .max()) for (g, _), (w, _) in zip(stacked, single))
+    log(f"[eval_paths] float32 non-fused batched (stacks of {EVAL_BATCH} passes) vs per-pass, "
+        f"{EVAL_BATCH} images: max_abs_err {dmax:.3g}, mean {dmean:.3g}, the worst element at "
+        f"{ratio:.3g} of cim_tpu's bound (rtol 1e-5, atol 1e-7)")
+    for (g, gb), (w, wb), it in zip(stacked, single, items):
+        check(np.array_equal(gb, it[1]) and np.array_equal(wb, it[1]), "non-fused: boxes")
+        np.testing.assert_allclose(g, w, **BATCHED_TOL)
+    del per32, nf32, m32
+    torch.cuda.empty_cache()
+
+    # bf16, the shipped precision: per-pass s/image; non-fused batched
+    # beside fused at EVAL_BATCH 8 on the same images
+    per_bf = _TimedEvaluator(_per_pass_cfg(cfg), model)
+    per_bf.im_detect_all(*items[-1])  # warm
+    per_bf.seconds.clear()
+    for it in items[:PER_PASS_IMAGES]:
+        per_bf.im_detect_all(*it)
+    stack_s = {}
+    for name, c in (("non-fused", _per_pass_cfg(cfg)), ("fused", cfg)):
+        c = clone_cfg(c)
+        c.TPU.EVAL_BATCH = EVAL_BATCH
+        ev = _TimedBatchedEvaluator(c, model)
+        ev.im_detect_all_many(items)  # warm: cuDNN's choices at the stack
+        ev.seconds.clear()
+        ev.im_detect_all_many(items)
+        stack_s[name] = ev.per_image()
+    log(f"[eval_paths] {card}: bf16 s/image: per-pass Evaluator {np.median(per_bf.seconds):.4f} "
+        f"(each {[round(s, 4) for s in per_bf.seconds]}; {len(passes)} host resizes and "
+        f"uploads an image); a window of {EVAL_BATCH}: non-fused batched "
+        f"{stack_s['non-fused']:.4f}, fused {stack_s['fused']:.4f}")
+    if profile:
+        phase_profile(per_bf, roidb[1], tag="one per-pass image")
+    del per_bf
+
+    # (4) UNION, and aspect-ratio passes with their hflip (cim_tpu's
+    # default heuristics): each N-row block is its pass's own call
+    with _deterministic_cudnn():
+        for path, aug in (("eval_union", dict(SCORE_HEUR="UNION", COORD_HEUR="UNION")),
+                          ("eval_aspect_ratio", dict(SCORE_HEUR="UNION", COORD_HEUR="UNION",
+                                                     ASPECT_RATIOS=(0.75,),
+                                                     ASPECT_RATIO_H_FLIP=True))):
+            c = _per_pass_cfg(cfg, **aug)
+            ev = Evaluator(c, model, device="cuda")
+            m = len(passes) + 2 * len(c.TEST.BBOX_AUG.ASPECT_RATIOS)
+            scores, bx = counted(path, lambda: ev.im_detect_all(*items[1]), m)
+            n = len(items[1][1])
+            check(scores.shape == (m * n, cfg.MODEL.NUM_CLASSES) and bx.shape == (m * n, 4)
+                  and np.array_equal(bx, np.vstack([items[1][1]] * m)),
+                  f"{path}: shapes {scores.shape}, {bx.shape} for {m} passes of {n}")
+            own = [ev.im_detect_bbox(*inputs)[0] for inputs in ev.iter_tta_inputs(*items[1])]
+            # the aspect passes sit before identity; also by their own entry point
+            own_ar = [ev.im_detect_bbox_aspect_ratio(*items[1], r, hflip=f)[0]
+                      for r in c.TEST.BBOX_AUG.ASPECT_RATIOS for f in (False, True)]
+            check(len(own) == m and all(np.allclose(a, b, rtol=1e-6, atol=0)
+                                        for a, b in zip(own[len(passes) - 1: -1], own_ar)),
+                  f"{path}: the aspect passes by either entry point")
+            worst = max(float(np.abs(scores[k * n: (k + 1) * n] - block).max())
+                        for k, block in enumerate(own))
+            for k, block in enumerate(own):
+                np.testing.assert_allclose(scores[k * n: (k + 1) * n], block, rtol=1e-6, atol=0)
+            s_nms, b_nms, _ = box_results_with_nms_and_limit(c, scores, bx)
+            check(len(s_nms) > 0 and np.isfinite(s_nms).all() and np.isfinite(b_nms).all(),
+                  f"{path}: NMS output finite")
+            log(f"[eval_paths] {path}: {m} passes, scores {scores.shape}, boxes {bx.shape}; "
+                f"each block against its pass's own call max_abs_err {worst:.3g} (bound rtol "
+                f"1e-6, cuDNN deterministic); {len(s_nms)} detections after NMS")
+
+    # (5) RoIPool (RoIPoolF), plain PyTorch: the card against the CPU at the
+    # 1200 pass's map, then eval and a train step through it
+    rng = np.random.RandomState(SEED + 11)
+    feat, rois = _roi_case(rng, EVAL_FEAT, EVAL_VALID, 1 / 16, 2048, torch.bfloat16)
+    with torch.no_grad():
+        out = roi_pool(feat, rois, 7, 1 / 16, valid_hw=EVAL_VALID)
+        t0 = time.perf_counter()
+        ref = roi_pool(feat.cpu(), rois.cpu(), 7, 1 / 16, valid_hw=EVAL_VALID)
+        cpu_s = time.perf_counter() - t0
+        check(torch.equal(out.cpu(), ref) and (ref != 0).any(), "roi_pool: card bit-equal to CPU")
+        pool_ms = cuda_ms(lambda: roi_pool(feat, rois, 7, 1 / 16, valid_hw=EVAL_VALID), 5)
+        align_ms = cuda_ms(lambda: roi_align(feat, rois, 7, 1 / 16, 0, 4, EVAL_VALID), 20)
+    log(f"[eval_paths] {card}: roi_pool at {EVAL_FEAT} bf16, valid {EVAL_VALID}, N 2048: "
+        f"bit-equal to the CPU's ({cpu_s:.1f} s there); {pool_ms:.3f} ms on the card (plain "
+        f"PyTorch), the RoIAlign kernel {align_ms:.4f} ms on the same input")
+    del feat, rois, out, ref
+    cfg_rp = clone_cfg(cfg)
+    cfg_rp.FAST_RCNN.ROI_XFORM_METHOD = "RoIPoolF"
+    m_rp = build_model(cfg_rp, device="cuda")
+    m_rp.load_state_dict(state)
+    ev_rp = _TimedEvaluator(cfg_rp, m_rp)
+    ev_rp.im_detect_all(*items[2])  # warm
+    s_rp, _ = counted("eval_roipool", lambda: ev_rp.im_detect_all(*items[3]), 0)
+    check(s_rp.shape == (N_PROPS, cfg.MODEL.NUM_CLASSES) and np.isfinite(s_rp).all()
+          and s_rp.std() > 0, "RoIPoolF eval: scores finite, not constant")
+    rp_eval_s = ev_rp.seconds[-1]
+    del m_rp, ev_rp
+    tcfg = _train_cfg()
+    tcfg.FAST_RCNN.ROI_XFORM_METHOD = "RoIPoolF"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    trainer = Trainer(tcfg, device="cuda", seed=SEED, init_generator=gen)
+    _randomize_frozen_bn(trainer.model, gen)
+    batch = _train_batch(tcfg, np.random.RandomState(SEED + 12), TRAIN_SCALES[0],
+                         TRAIN_N_VALID[0])
+    body = [p for n, p in trainer.model.named_parameters()
+            if n.startswith("Conv_Body.") and p.requires_grad]
+    torch.cuda.reset_peak_memory_stats()
+    roi_align.kernel_launches = roi_align_backward.kernel_launches = 0
+    (step_s, metrics, _), = _timed_steps(trainer, batch, 1)
+    launches["train_roipool"] = (roi_align.kernel_launches, roi_align_backward.kernel_launches)
+    rp_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["train_roipool"] == (0, 0), "RoIPoolF train: no RoIAlign kernel")
+    check(all(np.isfinite(v) for v in metrics.values()), f"RoIPoolF train: finite losses {metrics}")
+    # the step's gradients stay in .grad until the next step zeroes them
+    nonzero = sum(p.grad is not None and bool(p.grad.abs().max() > 0) for p in body)
+    check(nonzero > 0, "RoIPoolF train: a non-zero gradient into Conv_Body")
+    log(f"[eval_paths] {card}: RoIPoolF eval {rp_eval_s:.4f} s/image (fused, {len(passes)} "
+        f"passes); one Trainer.step (scale {TRAIN_SCALES[0]}, 2000 proposals, GRAD_ACCUM "
+        f"{tcfg.TPU.GRAD_ACCUM}) {step_s:.4f} s, peak {rp_peak:.2f} GB, total_loss "
+        f"{metrics['total_loss']:.4f}, a non-zero gradient in {nonzero} of {len(body)} "
+        f"trainable Conv_Body tensors")
+    del trainer, batch, body
+    torch.cuda.empty_cache()
+
+    # (6) the dynamic int8 head. (a) Its products at MaskFuse's shapes on
+    # the card against the port's CPU functions on the same float32 inputs:
+    # the CPU recomputes the first CPU_ROWS rows (a row's scales and sums
+    # are its own), which must match to the bit
+    c = model.Box_Head.mask_branch[0].out_channels
+    k_fc = model.Box_Head.seg_fc[0].in_features
+    hidden = model.Box_Head.seg_fc[0].out_features
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x = randn(2048, 7, 7, 2 * c)
+    w, b = randn(c, 2 * c, 3, 3, scale=0.01), randn(c, scale=0.1)
+    xd, wd, bd = randn(2048, k_fc), randn(hidden, k_fc, scale=0.005), randn(hidden, scale=0.1)
+    for name, accs, fn, args in (
+            ("int8_conv_nhwc", quant.conv_accumulators, quant.int8_conv_nhwc, (x, w, b)),
+            ("int8_dense", quant.dense_accumulators, quant.int8_dense, (xd, wd, bd))):
+        acc = accs(*args[:2])[0]
+        host = [args[0][:CPU_ROWS].cpu()] + [a.cpu() for a in args[1:]]
+        acc_cpu = accs(*host[:2])[0]
+        check(torch.equal(acc[:CPU_ROWS].cpu(), acc_cpu), f"{name}: int32 accumulators bit-equal")
+        check(_within_ulp(fn(*args)[:CPU_ROWS], fn(*host)), f"{name}: outputs within 1 ulp")
+        log(f"[eval_paths] {name} at {tuple(args[0].shape)} x {tuple(args[1].shape)}: the "
+            f"card's int32 accumulators of the first {CPU_ROWS} rows bit-equal to the CPU's, "
+            f"outputs within 1 ulp")
+        del acc, acc_cpu, host
+    # (b) one-call times: the int8 forms against the bf16 calls the model
+    # makes (its Conv2d / Linear cast the float32 weight each call)
+    import torch.nn.functional as F
+
+    xb, xdb = x.to(torch.bfloat16), xd.to(torch.bfloat16)
+    rows, tap = torch.randint(-127, 128, (2048 * 49, 2 * c), dtype=torch.int8, device="cuda"), \
+        torch.randint(-127, 128, (c, 2 * c), dtype=torch.int8, device="cuda")
+    rows_d, w_q = torch.randint(-127, 128, (2048, k_fc), dtype=torch.int8, device="cuda"), \
+        torch.randint(-127, 128, (hidden, k_fc), dtype=torch.int8, device="cuda")
+    times = {
+        "conv int8": cuda_ms(lambda: quant.int8_conv_nhwc(xb, w, b), 10),
+        "conv int8 GEMM x9": 9 * cuda_ms(lambda: torch._int_mm(rows, tap.t()), 10),
+        "conv bf16": cuda_ms(lambda: F.conv2d(xb.permute(0, 3, 1, 2), w.to(torch.bfloat16),
+                                              b.to(torch.bfloat16), padding=1), 10),
+        "fc int8": cuda_ms(lambda: quant.int8_dense(xdb, wd, bd), 10),
+        "fc int8 GEMM": cuda_ms(lambda: torch._int_mm(rows_d, w_q.t()), 10),
+        "fc bf16": cuda_ms(lambda: F.linear(xdb, wd.to(torch.bfloat16), bd.to(torch.bfloat16)),
+                           10),
+    }
+    conv_ops = 2.0 * 2048 * 49 * 9 * 2 * c * c
+    fc_ops = 2.0 * 2048 * k_fc * hidden
+    bounds = {
+        "conv int8": bound(xb.numel() * 2 + w.numel() * 4 + 2048 * 49 * c * 4, conv_ops,
+                           torch.int8),
+        "conv bf16": bound(xb.numel() * 2 + w.numel() * 4 + 2048 * 49 * c * 2, conv_ops,
+                           torch.bfloat16),
+        "fc int8": bound(xdb.numel() * 2 + wd.numel() * 4 + 2048 * hidden * 4, fc_ops, torch.int8),
+        "fc bf16": bound(xdb.numel() * 2 + wd.numel() * 4 + 2048 * hidden * 2, fc_ops,
+                         torch.bfloat16),
+    }
+    log(f"[eval_paths] {card}: one call, N 2048 ROIs, ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+        + "; bounds " + ", ".join(f"{k} {v[0]:.4f} by {v[1]}" for k, v in bounds.items())
+        + f"; int8 / bf16: conv {times['conv int8'] / times['conv bf16']:.3f}, fc "
+        f"{times['fc int8'] / times['fc bf16']:.3f}")
+    del x, w, b, xd, wd, bd, xb, xdb, rows, tap, rows_d, w_q
+    torch.cuda.empty_cache()
+
+    # (c) TPU.EVAL_INT8 at EVAL_BATCH 8 over N_BATCHED_IMAGES images against
+    # bf16 on the same images; (d) its peak memory
+    items16 = _eval_items(roidb, N_BATCHED_IMAGES)
+    runs = {}
+    for name, int8 in (("bf16", False), ("int8", True)):
+        c8 = clone_cfg(cfg)
+        c8.TPU.EVAL_BATCH = EVAL_BATCH
+        c8.TPU.EVAL_INT8 = int8
+        ev = _TimedBatchedEvaluator(c8, model)
+        ev.im_detect_all_many(items16[:EVAL_BATCH])  # warm
+        ev.seconds.clear()
+        torch.cuda.reset_peak_memory_stats()
+        calls = quant.int_mm.calls
+        res = counted(f"eval_{name}", lambda: ev.im_detect_all_many(items16),
+                      len(passes) * N_BATCHED_IMAGES // EVAL_BATCH)
+        runs[name] = (res, ev.per_image(), torch.cuda.max_memory_allocated() / 1e9,
+                      quant.int_mm.calls - calls)
+        if int8 and profile:
+            phase_profile_batched(ev, roidb[:EVAL_BATCH], tag="int8: one stack")
+        del ev
+    (bf, bf_s, bf_peak, _), (i8, i8_s, i8_peak, mm_calls) = runs["bf16"], runs["int8"]
+    launches.pop("eval_bf16")
+    check(mm_calls == len(passes) * N_BATCHED_IMAGES // EVAL_BATCH * 10,
+          f"int8 eval: {mm_calls} int8 products (9 conv taps and seg_fc.0 a pass of a stack)")
+    dmax, dmean = _deviation([s for s, _ in i8], [s for s, _ in bf])
+    for s, _ in i8:
+        check(s.shape == (N_PROPS, cfg.MODEL.NUM_CLASSES) and np.isfinite(s).all()
+              and s.min() >= 0.0 and s.max() <= 1.0, "int8 eval: scores finite in [0, 1]")
+    log(f"[eval_paths] {card}: EVAL_BATCH {EVAL_BATCH}, {N_BATCHED_IMAGES} images: TPU.EVAL_INT8 "
+        f"{i8_s:.4f} s/image, peak {i8_peak:.2f} GB, {mm_calls} int8 products; bf16 {bf_s:.4f} "
+        f"s/image, peak {bf_peak:.2f} GB; int8 vs bf16 scores max_abs_err {dmax:.4g}, mean "
+        f"{dmean:.4g} (cim_tpu's bound: max < {INT8_MAX_DEV}, mean < {INT8_MEAN_DEV})")
+    check(dmax < INT8_MAX_DEV and dmean < INT8_MEAN_DEV, "int8 scores within cim_tpu's bound")
+    log(f"[eval_paths] phase {time.perf_counter() - t_phase:.1f} s; RoIAlign (forward, "
+        f"backward) launches by path {launches}")
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2117,6 +2480,8 @@ def main():
             phase_profile(evaluator, roidb[1])
         batched_launches, batched_dir, batched_props = phase_eval_batched(
             work_dir, card, evaluator.model, profile=args.profile)
+        paths = phase_eval_paths(card, evaluator.model, batched_dir, batched_props,
+                                 profile=args.profile)
         del evaluator
         phase_train_reference()
         train_fwd, train_bwd = phase_train(card, work_dir, profile=args.profile)
@@ -2150,6 +2515,7 @@ def main():
                                  "train": train_fwd, "train_cli": cli_fwd,
                                  "train_ddp": ddp_fwd, "train_ddp_gloo2": gloo2_fwd,
                                  "eval_cli": eval_cli_fwd, "train_cli_pre": pre_fwd,
+                                 **{p: v[0] for p, v in paths.items()},
                                  **{f"eval_{b}": v[0] for b, v in bodies.items()},
                                  **{f"train_{b}": v[1] for b, v in bodies.items()}},
             **fwd_kernel,
@@ -2164,6 +2530,7 @@ def main():
                                  "train_cli": cli_bwd, "train_ddp": ddp_bwd,
                                  "train_ddp_gloo2": gloo2_bwd, "eval_cli": eval_cli_bwd,
                                  "train_cli_pre": pre_bwd,
+                                 **{p: v[1] for p, v in paths.items()},
                                  **{f"eval_{b}": 0 for b in bodies},
                                  **{f"train_{b}": v[2] for b, v in bodies.items()}},
             **bwd_kernel,

@@ -210,7 +210,7 @@ def get_default_cfg() -> AttrDict:
     # cim_tpu's execution knobs (no reference counterpart; they replace
     # NUM_GPUS/DataParallel and the subprocess eval sharding). The port
     # reads the same keys; knobs of TPU-only designs (space-to-depth stem,
-    # im2col conv, remat, int8 eval, eval devices) it does not implement.
+    # im2col conv, remat) it does not implement.
     c.TPU = AttrDict()
     c.TPU.DATA_PARALLEL = 0  # 0 = all local devices
     c.TPU.PRECISION = "bf16_compute"  # params f32, matmul compute bf16
@@ -244,8 +244,8 @@ def get_default_cfg() -> AttrDict:
     # eval: TTA passes of EVAL_BATCH images stacked per forward
     # (engine.test.BatchedEvaluator; 1 = sequential reference-style loop)
     c.TPU.EVAL_BATCH = 8
-    # experimental in cim_tpu: dynamic w8a8 (int8) for the MaskFuse conv +
-    # fc1 at eval time. Default off.
+    # dynamic w8a8 (int8) for the MaskFuse conv + fc1 at eval time
+    # (engine.test.Evaluator, ops.quant: torch._int_mm). Default off.
     c.TPU.EVAL_INT8 = False
     # GEMM (im2col) spelling of cim_tpu's MaskFuse head conv: identical
     # params and math, for XLA on the CPU.
@@ -253,9 +253,9 @@ def get_default_cfg() -> AttrDict:
     # fused TTA: ship the ORIGINAL image once and derive all TTA passes
     # on-device in one compiled program (engine.test._fused_forward)
     c.TPU.FUSED_TTA = True
-    # in-process multi-device eval in cim_tpu: the stacked EVAL_BATCH axis
-    # over this many local devices (-1 = all; 1 = off). The port runs one
-    # card: with one visible it warns and uses it, with more it raises.
+    # in-process multi-device eval: each EVAL_BATCH stack split over this
+    # many local cards (-1 = all; 1 = off; more than are visible warns and
+    # uses those; engine.test_engine.eval_devices).
     c.TPU.EVAL_DEVICES = 1
 
     return c

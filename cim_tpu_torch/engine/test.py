@@ -1,22 +1,30 @@
-"""Inference engine: fused 10-pass flip+scale TTA (port of cim_tpu/engine/test.py).
+"""Inference engine: multi-scale / flip / aspect-ratio TTA (port of
+cim_tpu/engine/test.py).
 
 Behaviour contracts (reference lib/core/test.py): a pass resizes the image
 by scale = target / max_side, scales the rois, runs the model and averages
 the K refinement scores (cls * iou)[:, 1:]; im_detect_bbox_aug runs hflip,
-then each scale with its hflip, then identity, and averages the scores
-over the passes (AVG heuristic, boxes by ID). An hflip pass flips the
-image, the boxes (W - x2 - 1) and the 7x7 masks.
+then each scale with its hflip, then each aspect ratio with its hflip,
+then identity, and combines the passes' scores by TEST.BBOX_AUG.SCORE_HEUR
+(ID: the identity pass; AVG: the mean; UNION: the passes' rows stacked,
+(M * N, C)) and the boxes by COORD_HEUR (ID, or UNION: (M * N, 4)). An
+hflip pass flips the image, the boxes (W - x2 - 1) and the 7x7 masks.
 
-Ported here is cim_tpu's fused path: the original uint8 image is padded
-to a 128-multiple bucket and moved to the device once, every pass resizes
-it there (ops.image.resize_bilinear_dynamic, with the hflip folded in)
-onto a canvas of 64-multiples sized by the image's aspect bucket, and
-proposals pad to a multiple of 256 with a validity mask. Evaluator runs
-one image at a time; BatchedEvaluator stacks the images that share a
-bucket and runs every pass of the stack as one forward (cim_tpu's vmap,
-written out as a batch axis), split over TPU.EVAL_DEVICES cards. The
-per-pass host path (which needs cv2), and with it the non-fused batched
-path, is not ported yet.
+Two paths, as in cim_tpu. The fused path (TPU.FUSED_TTA, scales x hflip
+with AVG/ID): the original uint8 image is padded to a 128-multiple bucket
+and moved to the device once, every pass resizes it there
+(ops.image.resize_bilinear_dynamic, with the hflip folded in) onto a
+canvas of 64-multiples sized by the image's aspect bucket. The per-pass
+path (every other protocol): each pass is resized on the host (cv2, as
+the reference) and uploaded as uint8 RGB, normalized on the device with
+its pad masked to zero. Images pad to 128-multiple buckets and proposals
+to a multiple of 256 with a validity mask; padded scores equal unpadded
+ones. Evaluator runs one image at a time; BatchedEvaluator stacks the
+images that share a bucket and runs every pass of the stack as one
+forward (fused), or stacks single passes of a window of images (per-pass;
+cim_tpu's vmap, written out as a batch axis), split over TPU.EVAL_DEVICES
+cards. TPU.EVAL_INT8 runs MaskFuse's conv and first FC as dynamic int8
+products (models.builder.int8_eval_view).
 """
 from __future__ import annotations
 
@@ -26,8 +34,16 @@ import math
 import numpy as np
 import torch
 
-from cim_tpu_torch.data.transforms import TORCH_MEAN, TORCH_STD
-from cim_tpu_torch.ops.boxes import box_voting_np, flip_boxes
+from cim_tpu_torch.data.transforms import (
+    TORCH_MEAN,
+    TORCH_STD,
+    aspect_ratio_rel,
+    prep_image,
+    prep_image_uint8_rgb,
+    scale_for_target,
+)
+from cim_tpu_torch.models.builder import int8_eval_view
+from cim_tpu_torch.ops.boxes import aspect_ratio, box_voting_np, flip_boxes
 from cim_tpu_torch.ops.image import resize_bilinear_dynamic, resize_bilinear_dynamic_batched
 from cim_tpu_torch.ops.nms import nms_np, soft_nms_np
 from cim_tpu_torch.utils.device import check_on, resolve_device
@@ -57,10 +73,14 @@ class Evaluator:
     RATIO_BUCKETS = (0.5, 0.625, 0.75, 0.875, 1.0)
 
     def __init__(self, cfg, model, device="cuda"):
+        """With TPU.EVAL_INT8 the evaluator runs an int8 view of ``model``
+        that shares its parameters; ``model`` itself is left in float."""
         self.cfg = cfg
         self.device = resolve_device(device)
         check_on(model, self.device, "Evaluator")
         self.model = model.eval()
+        if bool(cfg.TPU.get("EVAL_INT8", False)):
+            self.model = int8_eval_view(self.model)
         # made once: a tensor built from host data on the card is a copy
         # from pageable memory, which waits for the card's queue
         self._pixel_means = torch.as_tensor(np.asarray(cfg.PIXEL_MEANS, np.float32),
@@ -85,7 +105,8 @@ class Evaluator:
 
     def fused_supported(self) -> bool:
         """Fused TTA covers the shipped protocols: scales x hflip with the
-        AVG/ID heuristics. Aspect-ratio TTA and UNION are not fused."""
+        AVG/ID heuristics. Aspect-ratio TTA (two chained resamplings) and
+        the other heuristics take the per-pass path."""
         cfg = self.cfg
         aug = cfg.TEST.BBOX_AUG
         if cfg.transform_mode not in ("ToTensor", "org"):
@@ -132,8 +153,7 @@ class Evaluator:
             else:
                 r = rois * float(s)
                 m = masks
-            out = self.model(img, r, m, valid, im_hw=(ovh, ovw))
-            sc = (out["refine_cls"] * out["refine_iou"])[:, :, 1:].mean(dim=0)
+            sc = self._scores(self.model(img, r, m, valid, im_hw=(ovh, ovw)))
             total = sc if total is None else total + sc
         return total / float(len(passes))
 
@@ -199,32 +219,163 @@ class Evaluator:
         )
         return scores.cpu().numpy()[: req["n"]], boxes
 
+    # ------------------------------------------------------ per-pass path
+
+    def _scores(self, out):
+        """The K-branch mean of (refine_cls * refine_iou)[..., 1:]."""
+        return (out["refine_cls"] * out["refine_iou"])[..., 1:].mean(dim=-3)
+
+    @torch.no_grad()
+    def _forward(self, image, rois, masks, valid, im_h: int, im_w: int):
+        """One pass of one image (cim_tpu Evaluator._forward): image (Hp,
+        Wp, 3) on the device, uint8 RGB normalized here with its pad beyond
+        (im_h, im_w) zeroed, or float32 as the host prepared it. Returns
+        the (N, C) scores on the device."""
+        if image.dtype == torch.uint8:
+            image = self._normalize(image.float())
+            image[im_h:] = 0.0
+            image[:, im_w:] = 0.0
+        return self._scores(self.model(image, rois, masks, valid, im_hw=(im_h, im_w)))
+
+    def _prepare(self, im, boxes, masks, target_scale, target_max_size):
+        """Host half of one pass: resize, scale the rois, pad to the shape
+        bucket (cim_tpu Evaluator._prepare). Returns a request for
+        _forward, or for a stack of them (BatchedEvaluator)."""
+        cfg = self.cfg
+        im_scale = scale_for_target(im.shape[:2], target_scale, target_max_size)
+        if cfg.transform_mode == "ToTensor":
+            # resized on the host as uint8 (cheap), normalized on the device
+            im_prep = prep_image_uint8_rgb(im, im_scale)
+        else:
+            im_prep = prep_image(im, im_scale, cfg.transform_mode, cfg.PIXEL_MEANS)
+        rois = boxes.astype(np.float32) * im_scale
+        im_p, rois_p, masks_p, valid = self._pad_to_bucket(im_prep, rois, masks)
+        return {
+            "image": im_p,
+            "rois": rois_p,
+            "masks": masks_p,
+            "valid": valid,
+            "im_h": im_prep.shape[0],
+            "im_w": im_prep.shape[1],
+            "n": boxes.shape[0],
+        }
+
+    def im_detect_bbox(self, im, boxes, masks, target_scale, target_max_size):
+        """One pass at one scale. im: (H, W, 3) uint8 BGR. Returns (scores
+        (N, C), boxes)."""
+        req = self._prepare(im, boxes, masks, target_scale, target_max_size)
+        dev = self.device
+        scores = self._forward(
+            torch.from_numpy(req["image"]).to(dev), torch.from_numpy(req["rois"]).to(dev),
+            torch.from_numpy(req["masks"]).to(dev), torch.from_numpy(req["valid"]).to(dev),
+            req["im_h"], req["im_w"],
+        )
+        return scores.cpu().numpy()[: req["n"]], boxes
+
+    @staticmethod
+    def _hflip(im, boxes, masks):
+        """The image, boxes (about the image's width) and 7x7 masks of an
+        hflip pass."""
+        boxes_f = flip_boxes(torch.from_numpy(np.asarray(boxes, np.float32)), im.shape[1])
+        return im[:, ::-1, :], boxes_f.numpy(), np.flip(masks, 2).copy()
+
+    @staticmethod
+    def _aspect_ratio(im, boxes, ratio):
+        """The image and boxes of an aspect-ratio pass (width scaled)."""
+        boxes_ar = aspect_ratio(torch.from_numpy(np.asarray(boxes, np.float32)), ratio)
+        return aspect_ratio_rel(im, ratio), boxes_ar.numpy()
+
+    def im_detect_bbox_hflip(self, im, boxes, masks, target_scale, target_max_size):
+        """The hflip pass; the scores map back to the original boxes (ID)."""
+        scores, _ = self.im_detect_bbox(*self._hflip(im, boxes, masks), target_scale,
+                                        target_max_size)
+        return scores, boxes
+
+    def im_detect_bbox_aspect_ratio(self, im, boxes, masks, ratio, hflip=False):
+        """Width-relative aspect-ratio pass (reference
+        im_detect_bbox_aspect_ratio, test.py:284-317)."""
+        im_ar, boxes_ar = self._aspect_ratio(im, boxes, ratio)
+        detect = self.im_detect_bbox_hflip if hflip else self.im_detect_bbox
+        scores, _ = detect(im_ar, boxes_ar, masks, self.cfg.TEST.SCALE, self.cfg.TEST.MAX_SIZE)
+        return scores, boxes
+
     def im_detect_all(self, im, boxes, masks):
         """Full TTA per cfg.TEST.BBOX_AUG (reference im_detect_bbox_aug).
-        im: (H, W, 3) uint8 BGR; boxes (N, 4); masks (N, 7, 7).
-        Returns (scores (N, C), boxes)."""
-        if not (self.cfg.TPU.FUSED_TTA and self.fused_supported()):
-            raise NotImplementedError(
-                "only the fused TTA path is ported (TPU.FUSED_TTA with the "
-                "AVG/ID heuristics, no aspect-ratio passes)"
-            )
-        return self.im_detect_all_fused(im, boxes, masks)
+        im: (H, W, 3) uint8 BGR; boxes (N, 4); masks (N, 7, 7). Returns
+        (scores, boxes): (N, C) and the boxes, or (M * N, C) and (M * N,
+        4) for UNION over M passes."""
+        cfg = self.cfg
+        if cfg.TPU.FUSED_TTA and self.fused_supported():
+            return self.im_detect_all_fused(im, boxes, masks)
+        if not cfg.TEST.BBOX_AUG.ENABLED:  # one pass, whatever the heuristics
+            return self.im_detect_bbox(im, boxes, masks, cfg.TEST.SCALE, cfg.TEST.MAX_SIZE)
+        scores_ts = [self.im_detect_bbox(*inputs)[0]
+                     for inputs in self.iter_tta_inputs(im, boxes, masks)]
+        return combine_passes(cfg, scores_ts, boxes)
+
+    def iter_tta_inputs(self, im, boxes, masks):
+        """(image, boxes, masks, scale, max_size) of every TTA pass of
+        cfg.TEST.BBOX_AUG, in im_detect_all's order. Each pass's scores
+        align 1:1 with the original proposals (hflip and aspect ratio
+        transform the inputs), so AVG is a plain mean over passes."""
+        cfg = self.cfg
+        aug = cfg.TEST.BBOX_AUG
+        if not aug.ENABLED:
+            yield (im, boxes, masks, cfg.TEST.SCALE, cfg.TEST.MAX_SIZE)
+            return
+        if aug.H_FLIP:
+            yield (*self._hflip(im, boxes, masks), cfg.TEST.SCALE, cfg.TEST.MAX_SIZE)
+        for scale in aug.SCALES:
+            yield (im, boxes, masks, scale, aug.MAX_SIZE)
+            if aug.SCALE_H_FLIP:
+                yield (*self._hflip(im, boxes, masks), scale, aug.MAX_SIZE)
+        for ratio in aug.ASPECT_RATIOS:
+            im_ar, boxes_ar = self._aspect_ratio(im, boxes, ratio)
+            yield (im_ar, boxes_ar, masks, cfg.TEST.SCALE, cfg.TEST.MAX_SIZE)
+            if aug.ASPECT_RATIO_H_FLIP:
+                yield (*self._hflip(im_ar, boxes_ar, masks), cfg.TEST.SCALE, cfg.TEST.MAX_SIZE)
+        yield (im, boxes, masks, cfg.TEST.SCALE, cfg.TEST.MAX_SIZE)
+
+
+def combine_passes(cfg, scores_ts, boxes):
+    """The passes' (N, C) scores, identity last, combined by
+    TEST.BBOX_AUG.SCORE_HEUR and the boxes by COORD_HEUR (cim_tpu
+    im_detect_all, :372-388); another heuristic raises, as there."""
+    aug = cfg.TEST.BBOX_AUG
+    if aug.SCORE_HEUR == "ID":
+        scores = scores_ts[-1]
+    elif aug.SCORE_HEUR == "AVG":
+        scores = np.mean(scores_ts, axis=0)
+    elif aug.SCORE_HEUR == "UNION":
+        scores = np.vstack(scores_ts)
+    else:
+        raise NotImplementedError(f"Score heur {aug.SCORE_HEUR} not supported")
+    if aug.COORD_HEUR == "ID":
+        boxes_c = boxes
+    elif aug.COORD_HEUR == "UNION":
+        boxes_c = np.vstack([boxes] * len(scores_ts))
+    else:
+        raise NotImplementedError(f"Coord heur {aug.COORD_HEUR} not supported")
+    return scores, boxes_c
 
 
 class BatchedEvaluator(Evaluator):
-    """Cross-image batched TTA (port of cim_tpu/engine/test.py:428-579,
-    the fused path): whole images are grouped by (original-image bucket,
+    """Cross-image batched TTA (port of cim_tpu/engine/test.py:428-579).
+    Fused path: whole images are grouped by (original-image bucket,
     proposal pad, canvas-ratio bucket), and each stack of ``batch_size``
     runs every TTA pass as one forward of the stack, so a pass launches
-    its kernels once for B images. The scores are each image's own, as
-    Evaluator gives them, to float32 rounding (batched products may sum in
-    another order).
+    its kernels once for B images. Per-pass path (FUSED_TTA off, or aspect
+    ratios, with AVG/ID): the host-prepared passes of a window of images
+    are grouped by (pass bucket, proposal pad), each stack of
+    ``batch_size`` passes is one forward, and each image's scores are the
+    mean of its passes'. The scores are each image's own, as Evaluator
+    gives them, to float32 rounding (batched products may sum in another
+    order). Other heuristics (UNION) fall back to Evaluator per image.
 
     Unlike cim_tpu, which pads a partial stack to batch_size by repeating
-    its last image (jit needs one shape), a partial stack runs at its real
-    size: eager PyTorch has no fixed shape to meet, and a repeated image
-    changes no other image's scores. The non-fused batched path (stacks of
-    single passes) needs the per-pass Evaluator path and is not ported.
+    its last member (jit needs one shape), a partial stack runs at its
+    real size: eager PyTorch has no fixed shape to meet, and a repeated
+    member changes no other member's scores.
 
     devices: the cards a stack is split over (cim_tpu's mesh over
     TPU.EVAL_DEVICES, the reference's DataParallel test model). The model
@@ -286,20 +437,37 @@ class BatchedEvaluator(Evaluator):
                     one[:, ovw:] = 0.0
             s = scales_t[p][:, None, None]
             r = (flip_boxes(rois, widths) if hflip else rois) * s
-            out = self.model(img, r, masks_f if hflip else masks, valid, im_hw=extents)
-            sc = (out["refine_cls"] * out["refine_iou"])[..., 1:].mean(dim=-3)
+            sc = self._scores(self.model(img, r, masks_f if hflip else masks, valid,
+                                         im_hw=extents))
             total = sc if total is None else total + sc
         return total / float(len(passes))
 
+    @torch.no_grad()
+    def _forward_batched(self, images, rois, masks, valid, im_hws):
+        """One pass of each member of a stack (cim_tpu's vmap over
+        _forward): images (B, Hp, Wp, 3), uint8 RGB normalized here with
+        each member's pad beyond its (im_h, im_w) zeroed, or float32;
+        returns the (B, N, C) scores on the device."""
+        if images.dtype == torch.uint8:
+            images = self._normalize(images.float())
+            for one, (h, w) in zip(images, im_hws):
+                one[h:] = 0.0
+                one[:, w:] = 0.0
+        return self._scores(self.model(images, rois, masks, valid, im_hw=list(im_hws)))
+
     def _dispatch(self, group):
-        """Queue a stack's passes on this evaluator's device; returns the
-        scores on the device."""
+        """Queue a stack on this evaluator's device: every pass of whole
+        images (fused requests, which carry a ratio bucket), or one pass of
+        each member (per-pass requests); returns the scores on the
+        device."""
         reqs = [r for _, r in group]
         dev = self.device
         stacked = [torch.from_numpy(np.stack([r[k] for r in reqs])).to(dev)
                    for k in ("image", "rois", "masks", "valid")]
-        return self._fused_forward_batched(
-            *stacked, [(r["im_h"], r["im_w"]) for r in reqs], reqs[0]["ratio_hw"])
+        im_hws = [(r["im_h"], r["im_w"]) for r in reqs]
+        if "ratio_hw" in reqs[0]:
+            return self._fused_forward_batched(*stacked, im_hws, reqs[0]["ratio_hw"])
+        return self._forward_batched(*stacked, im_hws)
 
     def _run_stack(self, group):
         """group: [(item index, request)] of one key -> [(index, scores)].
@@ -331,15 +499,34 @@ class BatchedEvaluator(Evaluator):
 
     def im_detect_all_many(self, items, window: int | None = None):
         """items: list of (im, boxes, masks). Returns [(scores, boxes)] in
-        order. ``window`` is the non-fused path's, which is not ported."""
+        order. On the per-pass path the passes of up to ``window`` images
+        (4 x batch_size by default) are stacked together."""
         if not self._batched_supported():
             return [self.im_detect_all(im, b, m) for im, b, m in items]
         if self.cfg.TPU.FUSED_TTA and self.fused_supported():
             return self._fused_batched_many(items)
-        raise NotImplementedError(
-            "only the fused batched TTA path is ported (TPU.FUSED_TTA with the "
-            "AVG/ID heuristics, no aspect-ratio passes)"
-        )
+        window = window or 4 * self.batch_size
+        out_sum = [None] * len(items)
+        out_cnt = [0] * len(items)
+        for w0 in range(0, len(items), window):
+            groups: dict = {}
+            for idx, (im, boxes, masks) in enumerate(items[w0: w0 + window], start=w0):
+                for im_x, b_x, m_x, scale, max_size in self.iter_tta_inputs(im, boxes, masks):
+                    req = self._prepare(im_x, b_x, m_x, scale, max_size)
+                    key = (req["image"].shape, req["rois"].shape[0])
+                    groups.setdefault(key, []).append((idx, req))
+                    if len(groups[key]) == self.batch_size:
+                        self._scatter(self._run_stack(groups.pop(key)), out_sum, out_cnt)
+            for group in groups.values():  # partial stacks, at their own size
+                self._scatter(self._run_stack(group), out_sum, out_cnt)
+        return [(out_sum[i] / out_cnt[i], items[i][1]) for i in range(len(items))]
+
+    @staticmethod
+    def _scatter(scored, out_sum, out_cnt):
+        """Add each pass's scores to its image's sum."""
+        for idx, s in scored:
+            out_sum[idx] = s if out_sum[idx] is None else out_sum[idx] + s
+            out_cnt[idx] += 1
 
 
 def box_results_with_nms_and_limit(cfg, scores, boxes):

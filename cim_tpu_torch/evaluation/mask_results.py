@@ -53,6 +53,19 @@ def mask_results_with_nms_and_limit_get_index(cfg, scores, boxes, detections_per
     return im_results[:, -1], im_results[:, :-1], out_boxes, out_inds
 
 
+def proposal_index(row: int, n_rows: int, n_proposals: int) -> int:
+    """The proposal that detection row ``row`` of an image's ``n_rows``
+    scores belongs to: the row itself, or, for a TEST.BBOX_AUG UNION
+    record, which stacks M passes' rows over the same N proposals
+    (engine.test.combine_passes), the row modulo N. (cim_tpu's exporter
+    and evaluation index the proposals by the row and so fail on UNION
+    records.)"""
+    if n_rows % n_proposals:
+        raise ValueError(f"{n_rows} score rows are no whole number of passes over "
+                         f"{n_proposals} proposals")
+    return int(row) % n_proposals
+
+
 def mask_results_with_nms_and_limit(cfg, scores, boxes, masks):
     """The same, returning the kept masks instead of indices
     (reference mask_eval_utils.py:6-54)."""

@@ -7,6 +7,7 @@ cim_tpu_torch.utils.jax_weights.state_dict_from_jax, load unchanged.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List
 
 import torch
@@ -41,20 +42,19 @@ class CIMModel(nn.Module):
     def __init__(self, conv_body: str = "resnet50.torch_resnet50",
                  num_classes: int = 20, refine_times: int = 3,
                  mlp_head_dim: int = 4096, roi_size: int = 7,
+                 roi_method: str = "RoIAlign",
                  sampling_ratio: int = 0, max_adaptive_grid: int = 2,
                  compute_dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         if conv_body not in BACKBONES:
-            raise NotImplementedError(
-                f"CONV_BODY {conv_body!r} is not ported yet (ported: {sorted(BACKBONES)})"
-            )
+            raise ValueError(f"Unknown CONV_BODY: {conv_body} (known: {sorted(BACKBONES)})")
         body = BACKBONES[conv_body]
         self.body_cls = body
         self.compute_dtype = compute_dtype
         self.Conv_Body = body(device=device)
         self.Box_Head = MaskFuse(
             body.dim_out, body.spatial_scale, hidden_dim=mlp_head_dim,
-            roi_size=roi_size, sampling_ratio=sampling_ratio,
+            roi_size=roi_size, roi_method=roi_method, sampling_ratio=sampling_ratio,
             max_adaptive_grid=max_adaptive_grid, dtype=compute_dtype,
             device=device,
         )
@@ -141,7 +141,9 @@ def is_frozen(name: str, frozen_paths) -> bool:
 def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
                 train: bool = False) -> CIMModel:
     """CIMModel from a config AttrDict, on ``device``: the card unless the
-    caller passes device="cpu".
+    caller passes device="cpu". The model computes in float; TPU.EVAL_INT8
+    takes effect in engine.test.Evaluator (int8_eval_view), as cim_tpu's
+    Evaluator clones its model with int8_eval.
 
     Precision follows cfg.TPU.PRECISION as in cim_tpu: "bf16_compute" runs
     the backbone and MaskFuse in bf16 (params stay float32) and the heads
@@ -155,12 +157,6 @@ def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
     statistics stay frozen buffers either way; the FrozenBN weight and bias
     train above FREEZE_AT, as in cim_tpu)."""
     device = resolve_device(device)
-    if cfg.FAST_RCNN.ROI_XFORM_METHOD != "RoIAlign":
-        raise NotImplementedError(
-            f"ROI_XFORM_METHOD {cfg.FAST_RCNN.ROI_XFORM_METHOD!r} is not ported yet"
-        )
-    if bool(cfg.TPU.get("EVAL_INT8", False)):
-        raise NotImplementedError("TPU.EVAL_INT8 is not ported yet")
     if hasattr(BACKBONES.get(cfg.MODEL.CONV_BODY), "STAGES"):
         _check_hrnet_stages(cfg)
     cap = cfg.TPU.MAX_ADAPTIVE_GRID
@@ -172,6 +168,7 @@ def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
         refine_times=cfg.REFINE_TIMES,
         mlp_head_dim=cfg.FAST_RCNN.MLP_HEAD_DIM,
         roi_size=cfg.FAST_RCNN.ROI_XFORM_RESOLUTION,
+        roi_method=cfg.FAST_RCNN.ROI_XFORM_METHOD,
         sampling_ratio=cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO,
         max_adaptive_grid=cap,
         compute_dtype=torch.bfloat16 if cfg.TPU.PRECISION == "bf16_compute" else torch.float32,
@@ -185,3 +182,16 @@ def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
     for name, p in model.named_parameters():
         p.requires_grad_(not is_frozen(name, frozen))
     return model.train()
+
+
+def int8_eval_view(model: CIMModel) -> CIMModel:
+    """A shallow copy of ``model`` whose MaskFuse head runs its conv and
+    seg_fc.0 as dynamic int8 products (cim_tpu's model.clone(int8_eval=
+    True)). It shares every parameter and buffer with ``model``, which is
+    left as it is (a Trainer's model keeps training in float)."""
+    view = copy.copy(model)
+    view._modules = dict(model._modules)
+    head = copy.copy(model.Box_Head)
+    head.int8_eval = True
+    view._modules["Box_Head"] = head
+    return view

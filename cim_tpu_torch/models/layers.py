@@ -15,20 +15,40 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cim_tpu_torch.ops.quant import int8_conv_nhwc, int8_dense
+
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d computing in the dtype of its input."""
+    """nn.Conv2d computing in the dtype of its input; forward_int8 is its
+    dynamic int8 form on the same parameters."""
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
+    def forward_int8(self, x):
+        """The conv as w8a8 products (ops.quant.int8_conv_nhwc; cim_tpu's
+        _Int8Conv), stride 1 with symmetric padding and a bias only; x
+        (N, C, H, W), NHWC in memory -> the input's dtype, NHWC in memory."""
+        if (self.stride != (1, 1) or self.dilation != (1, 1) or self.groups != 1
+                or self.bias is None or self.padding[0] != self.padding[1]):
+            raise ValueError("the int8 conv is stride 1, undilated, ungrouped, with a bias "
+                             "and the same padding on both axes")
+        y = int8_conv_nhwc(x.permute(0, 2, 3, 1), self.weight, self.bias, self.padding[0])
+        return y.to(x.dtype).permute(0, 3, 1, 2)
+
 
 class Linear(nn.Linear):
-    """nn.Linear computing in the dtype of its input."""
+    """nn.Linear computing in the dtype of its input; forward_int8 is its
+    dynamic int8 form on the same parameters."""
 
     def forward(self, x):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+    def forward_int8(self, x):
+        """x @ W^T + b as w8a8 products (ops.quant.int8_dense; cim_tpu's
+        _Int8Dense), in the input's dtype."""
+        return int8_dense(x, self.weight, self.bias).to(x.dtype)
 
 
 class FrozenBatchNorm(nn.Module):

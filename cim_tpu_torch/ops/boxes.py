@@ -1,6 +1,6 @@
 """Box geometry of the eval path (port of cim_tpu/ops/boxes.py): the flip
-of the TTA passes on the card, and the host-side IoU and box voting of
-TEST.BBOX_VOTE in numpy."""
+and aspect-ratio transforms of the TTA passes (torch, on any device), and
+the host-side IoU and box voting of TEST.BBOX_VOTE in numpy."""
 from __future__ import annotations
 
 import numpy as np
@@ -13,6 +13,13 @@ def flip_boxes(boxes: torch.Tensor, im_width) -> torch.Tensor:
     x1 = im_width - boxes[..., 2] - 1
     x2 = im_width - boxes[..., 0] - 1
     return torch.stack([x1, boxes[..., 1], x2, boxes[..., 3]], dim=-1)
+
+
+def aspect_ratio(boxes: torch.Tensor, ratio: float) -> torch.Tensor:
+    """Scale the x coordinates of xyxy boxes by a width-relative aspect
+    ratio (reference lib/utils/boxes.py aspect_ratio)."""
+    return torch.stack([boxes[..., 0] * ratio, boxes[..., 1], boxes[..., 2] * ratio,
+                        boxes[..., 3]], dim=-1)
 
 
 def box_iou_np(boxes_a, boxes_b, legacy_plus_one: bool = False):

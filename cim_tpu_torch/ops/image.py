@@ -1,6 +1,7 @@
 """Device-side image resize for fused TTA (plain PyTorch).
 
-Port of cim_tpu/ops/image.py:resize_bilinear_dynamic: cv2.resize
+Port of cim_tpu/ops/image.py: resize_bilinear_dynamic (the eval path's)
+and resize_bilinear_gather, its gather-form cross-check. cv2.resize
 INTER_LINEAR semantics (half-pixel source coordinates
 src = (dst + 0.5) * ratio - 0.5, two taps per axis, edge replication), a
 per-call scale and source extent, a fixed output canvas, and the
@@ -96,3 +97,37 @@ def resize_bilinear_dynamic_batched(images: torch.Tensor, out_hw, scales,
         img[ovh:] = 0.0
         img[:, ovw:] = 0.0
     return out, valid
+
+
+def resize_bilinear_gather(image: torch.Tensor, out_hw, scale: float, src_valid_hw,
+                           hflip: bool = False):
+    """Gather form of :func:`resize_bilinear_dynamic`, the same semantics
+    as four full-canvas takes (cim_tpu's cross-check of the matrix form,
+    tests/test_image_resize.py). Returns (out, (ovh, ovw))."""
+    out_h, out_w = out_hw
+    src_h, src_w, (ovh, ovw), ratio_y, ratio_x = _extents(src_valid_hw, scale)
+    h, w, c = image.shape
+    dev = image.device
+    rows = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None].expand(out_h, out_w)
+    cols = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :].expand(out_h, out_w)
+    sy = (rows + 0.5) * ratio_y - 0.5
+    sx = (cols + 0.5) * ratio_x - 0.5
+    if hflip:
+        sx = (src_w - 1.0) - sx
+    sy = sy.clamp(0.0, src_h - 1.0)
+    sx = sx.clamp(0.0, src_w - 1.0)
+    y0, x0 = torch.floor(sy), torch.floor(sx)
+    wy, wx = (sy - y0)[..., None], (sx - x0)[..., None]
+    y0i, x0i = y0.to(torch.int64), x0.to(torch.int64)
+    y1i = torch.clamp(y0i + 1, max=int(src_valid_hw[0]) - 1)
+    x1i = torch.clamp(x0i + 1, max=int(src_valid_hw[1]) - 1)
+    flat = image.float().reshape(h * w, c)
+
+    def take(yy, xx):
+        return flat[(yy * w + xx).reshape(-1)].reshape(out_h, out_w, c)
+
+    out = (take(y0i, x0i) * (1 - wy) * (1 - wx) + take(y0i, x1i) * (1 - wy) * wx
+           + take(y1i, x0i) * wy * (1 - wx) + take(y1i, x1i) * wy * wx)
+    out[ovh:] = 0.0
+    out[:, ovw:] = 0.0
+    return out, (ovh, ovw)

@@ -1,4 +1,5 @@
-"""RoIAlign: plain PyTorch versions and the hand-written CUDA kernels.
+"""RoIAlign: plain PyTorch versions and the hand-written CUDA kernels;
+and RoIPool, plain PyTorch (:func:`roi_pool`).
 
 Semantics are those of cim_tpu.ops.roi_align (mmcv RoIAlign with
 ``aligned=True``): coordinates roi * spatial_scale - 0.5, no minimum ROI
@@ -27,6 +28,7 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from cim_tpu_torch.ops import _build
@@ -534,3 +536,69 @@ def roi_align(
 
 roi_align.kernel_launches = 0
 roi_align_backward.kernel_launches = 0
+
+
+def roi_pool(
+    features: torch.Tensor,
+    rois: torch.Tensor,
+    output_size: int = 7,
+    spatial_scale: float = 1.0 / 16.0,
+    max_bin_cells: int = 8,
+    valid_hw=None,
+) -> torch.Tensor:
+    """RoIPool (ROI_XFORM_METHOD RoIPoolF), plain PyTorch on any device:
+    port of cim_tpu/ops/roi_align.py:roi_pool, which is XLA there, not a
+    Pallas kernel. features (H, W, C), rois (N, 4) xyxy in image
+    coordinates -> (N, R, R, C) in the feature dtype; or features (B, H, W,
+    C), rois (B, N, 4) and valid_hw None or B (h, w) pairs -> (B, N, R, R,
+    C), each image computed as a call of its own.
+
+    Semantics of the reference's legacy CUDA kernel: the ROI's corners are
+    rounded, bin (ph, pw) covers the integer cells [floor(ph * bin),
+    ceil((ph + 1) * bin)) of it clipped to ``valid_hw``, and the output is
+    their max, over at most ``max_bin_cells`` cells per axis; an empty or
+    fully clipped bin gives 0. The max is a chain of torch.maximum in
+    cim_tpu's order, so autograd's gradient is jax.grad's, ties split in
+    halves as lax.max splits them.
+    """
+    _device_type(features)
+    if features.dim() == 4:
+        extents = _valid_list(features.shape[0], features.shape[1], features.shape[2], valid_hw)
+        return torch.stack([roi_pool(f, r, output_size, spatial_scale, max_bin_cells, hw)
+                            for f, r, hw in zip(features, rois, extents)])
+    height, width, channels = features.shape
+    vh, vw = _valid(height, width, valid_hw)
+    n, r = rois.shape[0], output_size
+    flat = features.reshape(height * width, channels)
+    rois = rois.float()
+    x1 = torch.round(rois[:, 0] * spatial_scale)
+    y1 = torch.round(rois[:, 1] * spatial_scale)
+    x2 = torch.round(rois[:, 2] * spatial_scale)
+    y2 = torch.round(rois[:, 3] * spatial_scale)
+    # cim_tpu's roi_w / R is a product with the float32 reciprocal of R
+    # (XLA folds a division by a constant so): the same product here picks
+    # the same cells
+    inv_r = float(np.float32(1.0) / np.float32(r))
+    bin_w = torch.clamp(x2 - x1 + 1.0, min=1.0) * inv_r
+    bin_h = torch.clamp(y2 - y1 + 1.0, min=1.0) * inv_r
+    bins = torch.arange(r, dtype=torch.float32, device=features.device)[None, :]
+    hstart = (torch.floor(bins * bin_h[:, None]) + y1[:, None]).clamp(0, vh)  # (N, R)
+    hend = (torch.ceil((bins + 1.0) * bin_h[:, None]) + y1[:, None]).clamp(0, vh)
+    wstart = (torch.floor(bins * bin_w[:, None]) + x1[:, None]).clamp(0, vw)
+    wend = (torch.ceil((bins + 1.0) * bin_w[:, None]) + x1[:, None]).clamp(0, vw)
+
+    neg = torch.full((), float("-inf"), dtype=features.dtype, device=features.device)
+    out = neg.expand(n, r, r, channels)
+    for cy in range(max_bin_cells):
+        yc = hstart + cy
+        y_ok = yc < hend
+        yy = yc.clamp(0, height - 1).to(torch.int64)
+        for cx in range(max_bin_cells):
+            xc = wstart + cx
+            ok = y_ok[:, :, None] & (xc < wend)[:, None, :]  # (N, R, R)
+            xx = xc.clamp(0, width - 1).to(torch.int64)
+            idx = yy[:, :, None] * width + xx[:, None, :]
+            val = flat[idx.reshape(-1)].reshape(n, r, r, channels)
+            out = torch.maximum(out, torch.where(ok[..., None], val, neg))
+    return torch.where(torch.isfinite(out), out, torch.zeros((), dtype=out.dtype,
+                                                             device=out.device))

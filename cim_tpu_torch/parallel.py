@@ -14,8 +14,13 @@ one rank is spawned here, one process per rank
 (torch.multiprocessing.spawn), and the ranks meet through a file store in
 a fresh temporary directory, so that concurrent runs on one host cannot
 collide on a port. A rank of a cuda run drives cuda:LOCAL_RANK unless the
-caller names a card. A spawned rank that raises ends the others; under
-torchrun, its agent does. The group's timeout bounds how long a rank
+caller names a card. Spawned ranks meet at a barrier after joining the
+group and again before leaving it, so that no rank tears its group down
+while a peer is still connecting. A spawned rank that raises writes its
+traceback beside the results; the others get SPAWN_GRACE_S seconds to
+end (a peer at a collective with it fails too) before they are
+terminated, and launch raises with every rank's traceback. Under
+torchrun, its agent ends the ranks. The group's timeout bounds how long a rank
 waits for the others at a collective. Real runs keep torch's default:
 rank 0 writes a ~2 GB snapshot while the others wait at a barrier, and
 the ranks' own work between two collectives (a roidb load, a trace
@@ -30,10 +35,14 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
+import traceback
 from datetime import timedelta
 
 import torch
 import torch.distributed as dist
+
+# seconds the other spawned ranks get to end by themselves after one fails
+SPAWN_GRACE_S = 5.0
 
 
 def init(world: int, rank: int, device, backend: str | None = None,
@@ -92,14 +101,31 @@ def host_shard_roidb(roidb, rank: int, world: int):
 
 
 def _spawned(index, fn, args, world, device, backend, timeout, store, out_dir):
-    # the host's cores shared between the ranks (torchrun gives each one)
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    init(world, index, rank_device(device, index), backend, f"file://{store}", timeout)
     try:
+        # the host's cores shared between the ranks (torchrun gives each one)
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        init(world, index, rank_device(device, index), backend, f"file://{store}", timeout)
+        barrier()
         result = fn(rank_device(device, index), *args)
         torch.save(result, os.path.join(out_dir, f"rank{index}.pt"))
+        barrier()
+    except Exception:
+        with open(os.path.join(out_dir, f"rank{index}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
     finally:
         destroy()
+
+
+def _rank_errors(out_dir, world: int) -> str:
+    """The tracebacks that spawned ranks wrote, each under its rank."""
+    parts = []
+    for r in range(world):
+        path = os.path.join(out_dir, f"rank{r}.err")
+        if os.path.exists(path):
+            with open(path) as f:
+                parts.append(f"--- rank {r} ---\n{f.read()}")
+    return "\n".join(parts)
 
 
 def launch(fn, world: int, device="cuda", args=(), backend: str | None = None,
@@ -108,7 +134,9 @@ def launch(fn, world: int, device="cuda", args=(), backend: str | None = None,
     and return {rank: result} of the ranks this process ran or spawned:
     all of them when it spawned them (results travel through torch.save,
     so they must pickle), its own under torchrun. A world of one outside
-    torchrun runs fn here, without a group."""
+    torchrun runs fn here, without a group. A spawned rank that fails
+    makes launch raise RuntimeError with the traceback of every rank that
+    failed."""
     if "WORLD_SIZE" in os.environ:  # torchrun
         env_world, env_rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
         if env_world != world:
@@ -125,9 +153,15 @@ def launch(fn, world: int, device="cuda", args=(), backend: str | None = None,
 
     out_dir = tempfile.mkdtemp(prefix="cim_ranks_")
     try:
-        mp.spawn(_spawned, nprocs=world, join=True,
-                 args=(fn, args, world, str(device), backend, timeout,
-                       os.path.join(out_dir, "store"), out_dir))
+        context = mp.spawn(_spawned, nprocs=world, join=False,
+                           args=(fn, args, world, str(device), backend, timeout,
+                                 os.path.join(out_dir, "store"), out_dir))
+        try:
+            while not context.join(grace_period=SPAWN_GRACE_S):
+                pass
+        except Exception as exc:
+            errors = _rank_errors(out_dir, world) or "(no rank wrote a traceback)"
+            raise RuntimeError(f"{exc}\nerrors of the failed ranks:\n{errors}") from exc
         return {r: torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
                 for r in range(world)}
     finally:

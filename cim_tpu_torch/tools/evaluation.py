@@ -97,6 +97,7 @@ def eval_shard(args_tuple):
     from cim_tpu_torch.evaluation.mask_results import (
         coco_encode,
         mask_results_with_nms_and_limit_get_index,
+        proposal_index,
     )
 
     opts, entries, detections, cob_dir, cat_ids = args_tuple
@@ -126,7 +127,8 @@ def eval_shard(args_tuple):
         _, _, cls_boxes, cls_inds = mask_results_with_nms_and_limit_get_index(
             cfg, scores, boxes, cfg.TEST.DETECTIONS_PER_IM)
         for j in range(1, cfg.MODEL.NUM_CLASSES + 1):
-            for d, idx in zip(cls_boxes[j], cls_inds[j]):
+            for d, row in zip(cls_boxes[j], cls_inds[j]):
+                idx = proposal_index(row, len(scores), len(entry["boxes"]))
                 if masks_full is not None:
                     mask = np.asarray(masks_full[int(idx)], np.uint8)
                 else:

@@ -17,7 +17,10 @@ Workers come from a spawn context, as in tools/evaluation.py.
 
 Unlike cim_tpu's exporter, --cob_dir works: cim_tpu passes the image id
 to load_cob_masks, which takes the roidb entry; the port passes the entry
-and the dataset's naming scheme (COCO or VOC), as evaluation does.
+and the dataset's naming scheme (COCO or VOC), as evaluation does. And a
+TEST.BBOX_AUG UNION record (M passes' rows over the same N proposals)
+maps each kept row to its proposal (mask_results.proposal_index), where
+cim_tpu indexes the proposals by the row.
 """
 from __future__ import annotations
 
@@ -78,7 +81,10 @@ def export_shard(payload):
     """(opts, entries, detections, cob_dir) -> (images, annotations)."""
     from cim_tpu_torch.config import get_default_cfg
     from cim_tpu_torch.data.voc_meta import coco_nummap_id
-    from cim_tpu_torch.evaluation.mask_results import mask_results_with_nms_and_limit_get_index
+    from cim_tpu_torch.evaluation.mask_results import (
+        mask_results_with_nms_and_limit_get_index,
+        proposal_index,
+    )
     from cim_tpu_torch.tools.evaluation import _paste_7x7, load_cob_masks
 
     opts, entries, detections, cob_dir = payload
@@ -116,7 +122,7 @@ def export_shard(payload):
                 score = dets[i, 4]
                 if opts["is_best"] and score != best_score:
                     continue
-                cob_ind = int(inds[i])
+                cob_ind = proposal_index(inds[i], len(scores), len(entry["boxes"]))
                 if masks_full is not None:
                     mask = masks_full[cob_ind]
                 else:

@@ -121,14 +121,6 @@ def test_batched_single_pass_org_mode(tiny):
         np.testing.assert_allclose(gs, sequential.im_detect_all(*it)[0], **SELF_TOL)
 
 
-def test_non_fused_batched_path_not_ported(tiny):
-    cfg, _, items, model, _ = tiny
-    cfg = clone_cfg(cfg)
-    cfg.TPU.FUSED_TTA = False
-    with pytest.raises(NotImplementedError, match="fused"):
-        torch_test.BatchedEvaluator(cfg, model, 2, device="cpu").im_detect_all_many(items[:2])
-
-
 def _image_loader(entry):
     r = np.random.RandomState(entry["id"])
     return r.randint(0, 256, (entry["height"], entry["width"], 3)).astype(np.uint8)

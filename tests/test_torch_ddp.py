@@ -17,7 +17,8 @@ tests/torch_ddp_ranks.py, spawned by parallel.launch.
 - Anti-noise seeds: the ranks' differ; world size 1 keeps (seed, step,
   microbatch).
 - host_shard_roidb against cim_tpu's; a rank that raises, or stalls past
-  the group's timeout, fails launch.
+  the group's timeout, fails launch, whose error holds the traceback of
+  every rank that failed.
 
 The ranks' group gets a 60 s timeout (TIMEOUT), 5 s in the stall test.
 """
@@ -163,6 +164,17 @@ def test_a_failing_rank_fails_the_launch():
     with pytest.raises(Exception, match="rank 1 fails"):
         parallel.launch(torch_ddp_ranks.fail_on_rank1, 2, "cpu", timeout=TIMEOUT)
     assert time.monotonic() - t0 < 60
+
+
+def test_every_failing_rank_is_named_in_the_launch_error():
+    """Each rank that fails after joining the group writes its traceback,
+    and the launcher's error holds both under their ranks, not only the
+    first that the spawn reports."""
+    with pytest.raises(RuntimeError) as info:
+        parallel.launch(torch_ddp_ranks.fail_on_both_ranks, 2, "cpu", timeout=TIMEOUT)
+    msg = str(info.value)
+    for r in (0, 1):
+        assert f"--- rank {r} ---" in msg and f"rank {r} fails after init" in msg
 
 
 def test_a_stalled_rank_fails_the_launch_at_the_timeout():

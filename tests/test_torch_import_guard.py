@@ -50,10 +50,18 @@ _DDP = ["cim_tpu_torch.parallel", "cim_tpu_torch.engine.train", "cim_tpu_torch.t
         "tests.torch_ddp_ranks"]
 
 
+# every eval configuration: the per-pass and non-fused paths, RoIPool and
+# the int8 head's products
+_EVAL_PATHS = ["cim_tpu_torch.ops.quant", "cim_tpu_torch.ops.roi_align",
+               "cim_tpu_torch.models.mask_fuse", "cim_tpu_torch.engine.test",
+               "cim_tpu_torch.tools.generate_mask_for_MaskRCNN"]
+
+
 @pytest.mark.parametrize("modules", [["package"], ["chip_smoke"],
                                      ["cim_tpu_torch.models.vgg", "cim_tpu_torch.models.hrnet"],
-                                     _PREPROCESSING, _DDP],
-                         ids=["slice", "chip_smoke", "bodies", "preprocessing", "ddp"])
+                                     _PREPROCESSING, _DDP, _EVAL_PATHS],
+                         ids=["slice", "chip_smoke", "bodies", "preprocessing", "ddp",
+                              "eval_paths"])
 def test_imports_load_no_jax(modules):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

@@ -89,6 +89,15 @@ def fail_on_rank1(device):
     return np.zeros(1)
 
 
+def fail_on_both_ranks(device):
+    """Both ranks pass the group's barrier, then each raises its own
+    error: rank 1 at once, rank 0 after a second."""
+    dist.barrier()
+    if parallel.rank() == 0:
+        time.sleep(1)
+    raise RuntimeError(f"rank {parallel.rank()} fails after init")
+
+
 def stall_on_rank1(device):
     """Rank 0 waits at an all-reduce that rank 1, asleep for 5 minutes,
     never joins."""

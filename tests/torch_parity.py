@@ -9,6 +9,8 @@ import os
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from cim_tpu.config import clone_cfg, get_default_cfg, load_cfg
 from cim_tpu.models.builder import build_model as build_jax_model
@@ -82,3 +84,16 @@ def random_rois(rng, n, h, w, min_size=4.0):
     x2 = np.minimum(x1 + rng.uniform(min_size, w * 0.7, n), w - 1)
     y2 = np.minimum(y1 + rng.uniform(min_size, h * 0.7, n), h - 1)
     return np.stack([x1, y1, x2, y2], -1).astype(np.float32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread for a module's tests, restored after: the
+    tier-1 run puts 6 test processes on the host's cores, and the many
+    small ops of a tiny model, each split over every core, then wait on
+    each other (a 0.3 s test took 50 s). A test file turns it on by
+    importing it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
