@@ -13,7 +13,8 @@ of which fails the run:
                    the card, at the eval path's shapes (the maps of all five
                    TTA scales, float32 and bf16, grid caps 4 and 2), at the
                    square image's 76x76 map, at the train path's buckets
-                   (scales 480 and 1200, N 2048 and 4096), at strides 8
+                   (scales 480, 576, 688, 864 and 1200, N 2048, and 1200
+                   at N 4096), at strides 8
                    and 32, and at the VGG-16 and HRNet-W48 paths' maps
                    (stride 8: a square image's 152x152x512 1200 pass and
                    the train buckets; stride 32: 30x38x2048 and
@@ -28,7 +29,8 @@ of which fails the run:
                    each image bit-equal to its own call
   roi_align_bwd    the backward kernel against its plain version on the
                    card, at the train path's shapes (scales 480 and 1200,
-                   N 2048 / 2047 / 4096 with zero-area padding ROIs,
+                   N 2048 / 2047 / 4096 with zero-area padding ROIs, and
+                   the buckets of scales 576, 688 and 864,
                    float32 and bf16, grid caps 4 and 2), at stride 8
                    (30 row bands, a part-filled channel slice) and at the
                    VGG-16 and HRNet-W48 train buckets (stride 32: two
@@ -85,6 +87,21 @@ of which fails the run:
                    and a timed step at scale 1200 with 4000 padded to
                    4096; then a checkpoint save / load / one more step
                    against the uninterrupted trainer
+  horizon          the port's training tools through their main(argv), at
+                   full width (bf16, RoIAlign cap 4, GRAD_ACCUM 4):
+                   stability_run (40 steps on a pool of 2 batches of 384x512
+                   with 2000 proposals: finite losses, total_loss falling);
+                   long_horizon_run (24 steps in two fresh-process segments
+                   of the training CLI, the second resumed from the first's
+                   checkpoint, across the LR decay at step 16: iterations
+                   stitched, the LR ratio SOLVER.GAMMA, warm-up, finite
+                   losses, each segment's peak device memory within 1.1x of
+                   the first's, one forward and one backward launch a
+                   microbatch; each segment's peak memory and host RSS);
+                   bench_train (s/step, images/s and MFU at the five
+                   TRAIN.SCALES buckets and the 4096 run, the protocol
+                   rate); profile_step; bench_eval (seq and batched over 8
+                   images) and bench_host_eval
   train_cli        the training CLI (cim_tpu_torch.tools.train main()) at
                    full width on an on-disk set of 8 375x500 JPEGs with
                    2000 proposals read by TrainLoader (their full-size
@@ -193,7 +210,6 @@ import json
 import os
 import pickle
 import socket
-import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -231,8 +247,9 @@ from cim_tpu_torch.evaluation import rle as rle_util
 from cim_tpu_torch.prm.model import MAX_PEAKS, PeakResponseMapper, load_prm_checkpoint
 from cim_tpu_torch.prm.modules import find_peaks
 from cim_tpu_torch.prm.train import PRMClassifierTrainer
-from cim_tpu_torch.tools import change_mask_thr
+from cim_tpu_torch.tools import bench_eval, bench_host_eval, bench_train, change_mask_thr
 from cim_tpu_torch.tools import evaluation as eval_cli
+from cim_tpu_torch.tools import long_horizon_run, profile_step, stability_run
 from cim_tpu_torch.tools import generate_mask_for_MaskRCNN as export_cli
 from cim_tpu_torch.tools import test_net as test_net_cli
 from cim_tpu_torch.tools import train as train_cli
@@ -272,6 +289,10 @@ BWD_F32_REL = 1e-5
 # operations/s by input type (bf16 on the tensor cores; f32 outside them)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+# the stride-16 maps of the train protocol's buckets (TRAIN.SCALES of a
+# 375x500 image, padded to 64: bench_train.bucket_for_scale), whole maps valid
+TRAIN_MAPS = {480: (24, 32, 1024), 576: (28, 36, 1024), 688: (36, 44, 1024),
+              864: (44, 56, 1024), 1200: (60, 76, 1024)}
 # the forward kernel's cases, drawn in this order from one generator seeded
 # with SEED: (name, features, valid, scale, N, dtype, sampling_ratio, cap)
 ROI_ALIGN_CASES = [
@@ -301,6 +322,11 @@ ROI_ALIGN_CASES = [
     # the HRNet-W48 paths' (stride 32, whole maps)
     ("hrnet48_train1200_bf16", (30, 38, 2048), (30, 38), 1 / 32, 2048, torch.bfloat16, 0, 4),
     ("hrnet48_train480_bf16", (12, 16, 2048), (12, 16), 1 / 32, 2048, torch.bfloat16, 0, 4),
+    # the train protocol's other three buckets (scales 576, 688 and 864 of a
+    # 375x500 image: 448x576, 576x704 and 704x896), whole maps, as phase
+    # horizon's bench_train runs them
+    *((f"train{t}_bf16", TRAIN_MAPS[t], TRAIN_MAPS[t][:2], 1 / 16, 2048, torch.bfloat16, 0, 4)
+      for t in (576, 688, 864)),
 ]
 # the batched forward's cases (cross-image eval stacks at the 1200 pass's
 # map): the images of a stack share a bucket, not a size, so each has its
@@ -331,6 +357,11 @@ PRM_STEPS = 3
 PRM_MEMORY_CAP_GB = 20.0  # one pass of MAX_PEAKS image copies must stay under it
 DDP_TIMED_STEPS = 2  # the two-rank run's timed steps, after two warm ones
 DDP_CLI_STEPS = CLI_STEPS  # the CLI's steps at world size 1 over NCCL, against train_cli's
+# phase horizon: the stability run's steps (its loss must fall over them), and
+# the segmented run's (cim_tpu's tests/test_long_horizon_cpu.py structure)
+STABILITY_STEPS = 40
+HORIZON = dict(total_steps=24, segment_steps=12, decay_at=16, warmup=4, disp=4)
+HORIZON_PEAK_RATIO = 1.1  # a segment's peak device memory against the first's
 # phase eval_paths: the per-pass / fused pair's images; the card-vs-CPU
 # pass's proposals and the int8 products' rows the CPU recomputes (the
 # CPU's cost); cim_tpu's bounds for the pairs it holds
@@ -353,11 +384,7 @@ def check(ok, what):
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()]
+    return bench_train.card_line(torch.device("cuda", torch.cuda.current_device()))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -428,7 +455,7 @@ def phase_roi_align():
     path's) for the kernels line, with the kernel's time summed over the
     10 passes of an eval image."""
     rng = np.random.RandomState(SEED)
-    main_case, times, other_bodies = None, {}, {}
+    main_case, times, other_shapes = None, {}, {}
     with torch.no_grad():
         for name, shape, valid, scale, n, dtype, sr, cap in ROI_ALIGN_CASES:
             feat, rois = _roi_case(rng, shape, valid, scale, n, dtype)
@@ -462,8 +489,8 @@ def phase_roi_align():
                 main_case = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                              "plan": plan._asdict()}
-            if name.startswith(("stride", "vgg16", "hrnet48")):
-                other_bodies[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            if name.startswith(("stride", "vgg16", "hrnet48", "train")):
+                other_shapes[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                                       "bound_by": b_by, "max_abs_err": err}
             del feat, rois, out, again, ref
     passes = {t: times[f"eval{t}_bf16" if t != 1200 else "eval_bf16"] for t in EVAL_PASS_MAPS}
@@ -473,8 +500,9 @@ def phase_roi_align():
         f"({', '.join(f'{t}: 2 x {ms:.4f}' for t, ms in passes.items())})")
     batched = phase_roi_align_batched(rng)
     main_case["batched"] = batched.pop("eval_b8_bf16")
-    # the VGG-16 and HRNet-W48 paths' shapes, one call and batched
-    main_case["other_bodies"] = {**other_bodies, **batched}
+    # the VGG-16 and HRNet-W48 paths' shapes, one call and batched, and the
+    # train buckets'
+    main_case["other_shapes"] = {**other_shapes, **batched}
     return main_case
 
 
@@ -576,8 +604,11 @@ def phase_roi_align_bwd():
         ("hrnet48_train1200_bf16", s32_1200, 1 / 32, 2048, bf16, 4),
         ("hrnet48_train1200_bf16_n4096", s32_1200, 1 / 32, 4096, bf16, 4),
         ("hrnet48_train480_bf16", s32_480, 1 / 32, 2048, bf16, 4),
+        # the train protocol's other three buckets (scales 576, 688, 864)
+        *((f"train{t}_bf16", (TRAIN_MAPS[t], TRAIN_MAPS[t][:2]), 1 / 16, 2048, bf16, 4)
+          for t in (576, 688, 864)),
     ]
-    main_case, other_bodies = None, {}
+    main_case, other_shapes = None, {}
     for name, (shape, valid), scale, n, dtype, cap in cases:
         _, rois = _roi_case(rng, shape, valid, scale, n, dtype)
         g = torch.from_numpy(rng.randn(n, 7, 7, shape[2]).astype(np.float32)).cuda()
@@ -615,11 +646,11 @@ def phase_roi_align_bwd():
             main_case = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                          "plan": plan._asdict()}
-        if name.startswith(("stride8", "vgg16", "hrnet48")):
-            other_bodies[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        if name.startswith(("stride8", "vgg16", "hrnet48", "train")):
+            other_shapes[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                                   "bound_by": b_by, "max_abs_err": err}
         del out, again, ref, mag, g
-    main_case["other_bodies"] = other_bodies
+    main_case["other_shapes"] = other_shapes
     return main_case
 
 
@@ -1262,6 +1293,127 @@ def phase_train_profile(trainer, batch, timed, tag="one train step"):
                 f"device {e.device_time_total / 1e3:.1f} ms")
     _log_port_kernels(events)
     log(events.table(sort_by="self_device_time_total", row_limit=40, max_name_column_width=70))
+
+
+def _launches():
+    return roi_align.kernel_launches, roi_align_backward.kernel_launches
+
+
+def _zero_launches():
+    roi_align.kernel_launches = 0
+    roi_align_backward.kernel_launches = 0
+
+
+def phase_horizon(work_dir, card):
+    """The port's training tools at full width (resnet50_voc, bf16 compute,
+    RoIAlign cap 4, GRAD_ACCUM 4), through their main(argv): (a)
+    stability_run, STABILITY_STEPS steps on a pool of 2 batches of 384x512
+    with 2000 proposals (finite losses, total_loss falling); (b)
+    long_horizon_run, two fresh-process segments of the training CLI, the
+    second resumed from the first's checkpoint, across the LR decay at
+    step 16 (iterations stitched, the LR ratio SOLVER.GAMMA, warm-up,
+    finite losses, each segment's peak device memory within
+    HORIZON_PEAK_RATIO of the first's, one forward and one backward launch
+    a microbatch from the segments' run_end lines); (c) bench_train at the
+    five TRAIN.SCALES buckets and the 4096 run; (d) profile_step; (e)
+    bench_eval (seq and batched over 8 images) and bench_host_eval.
+    Returns each tool's (forward, backward) launches by path."""
+    t_phase = time.perf_counter()
+    launches = {}
+    # the segments are child processes on this card: hand them the cache
+    torch.cuda.empty_cache()
+    _zero_launches()
+    st = stability_run.main(["--steps", str(STABILITY_STEPS), "--batch_pool", "2",
+                             "--precision", "bf16_compute", "--seed", str(SEED)])
+    launches["train_stability"] = _launches()
+    accum = st["grad_accum"]
+    check(launches["train_stability"] == (STABILITY_STEPS * accum,) * 2,
+          f"stability: launches {launches['train_stability']} for {STABILITY_STEPS} steps")
+    totals = [h["total_loss"] for h in st["history"]]
+    log(f"[horizon] stability_run {card}: {STABILITY_STEPS} steps of {accum} images at "
+        f"{tuple(st['image_hw'])}, {st['n_props']} proposals (pad {st['proposal_pad']}), a pool "
+        f"of 2: total_loss {totals[0]:.4f} -> {totals[-1]:.4f} (every 5th: "
+        f"{[round(t, 4) for t in totals[::5]]}), steady s/step {st['s_per_step_steady']:.4f}, "
+        f"{st['images_per_sec_steady']:.2f} images/s, first step {st['first_step_s']:.3f} s, "
+        f"peak device memory {st['peak_device_gb']:.2f} GB")
+    torch.cuda.empty_cache()
+
+    out = os.path.join(work_dir, "horizon.json")
+    argv = [f"--{k}={v}" for k, v in HORIZON.items()] + [
+        "--synth_image", "384", "512", "--synth_props", "2048", "--synth_valid", "2000",
+        "--workdir", os.path.join(work_dir, "horizon"), "--out", out,
+        "--set", "TPU.PALLAS_ROI_ALIGN", "True", "TPU.PRECISION", "bf16_compute"]
+    t0 = time.perf_counter()
+    hz = long_horizon_run.main(argv)
+    horizon_s = time.perf_counter() - t0
+    segs, bounds = hz["segments_wall"], hz["segment_boundaries"]
+    iters = [s["iter"] for s in hz["trajectory_every_disp"]]
+    gamma = load_cfg(os.path.join(REPO, "configs", "resnet50_voc.yaml")).SOLVER.GAMMA
+    check(hz["ok"] and hz["segments"] == 2 and hz["steps_completed"] == HORIZON["total_steps"],
+          f"horizon: {hz['segments']} segments, {hz['steps_completed']} steps")
+    check(iters == sorted(set(iters)) and [b["first_iter"] for b in bounds] == [0, 12]
+          and bounds[0]["last_iter"] < 12, f"horizon: segments stitched, iterations {iters}")
+    check(hz["lr_decay_ratio"] is not None and abs(hz["lr_decay_ratio"] - gamma) <= 1e-6,
+          f"horizon: LR ratio {hz['lr_decay_ratio']} at the decay, SOLVER.GAMMA {gamma}")
+    check(hz["trajectory_every_disp"][0]["lr"] < hz["lr_pre_decay"], "horizon: warm-up")
+    check(all(np.isfinite(s["loss"]) for s in hz["trajectory_every_disp"]),
+          "horizon: finite losses")
+    peaks = [s["peak_device_gb"] for s in segs]
+    check(all(p <= HORIZON_PEAK_RATIO * peaks[0] for p in peaks),
+          f"horizon: each segment's peak device memory within {HORIZON_PEAK_RATIO}x of the "
+          f"first's: {peaks}")
+    launches["train_horizon"] = (sum(s["roi_align_fwd_launches"] for s in segs),
+                                 sum(s["roi_align_bwd_launches"] for s in segs))
+    check(launches["train_horizon"] == (HORIZON["total_steps"] * accum,) * 2,
+          f"horizon: launches {launches['train_horizon']} for {HORIZON['total_steps']} steps")
+    log(f"[horizon] long_horizon_run {card}: {HORIZON['total_steps']} steps in "
+        f"{len(segs)} fresh-process segments at 384x512, 2000 proposals (pad 2048), decay at "
+        f"{HORIZON['decay_at']}, warm-up {HORIZON['warmup']}: LR {hz['lr_pre_decay']:.6g} -> "
+        f"{hz['lr_post_decay']:.6g} (ratio {hz['lr_decay_ratio']}), loss "
+        f"{hz['first_loss']} -> {hz['final_loss']}, mining health {hz['mining_health']}, "
+        f"boundaries {bounds}; {horizon_s:.1f} s")
+    for s in segs:
+        log(f"[horizon] segment {s['segment']} (to step {s['max_iter']}): wall {s['wall_s']} s, "
+            f"peak device memory {s['peak_device_gb']} GB, peak host RSS {s['peak_rss_gb']} GB, "
+            f"launches forward {s['roi_align_fwd_launches']}, backward "
+            f"{s['roi_align_bwd_launches']}")
+
+    _zero_launches()
+    bt = bench_train.main([], log=log)
+    launches["train_protocol"] = _launches()
+    n_steps = sum(1 + (10 if s <= 576 else 6) for s in bt["per_scale"]) + 1 + 6  # + the 4096 run
+    check(launches["train_protocol"] == (n_steps * accum,) * 2,
+          f"bench_train: launches {launches['train_protocol']} for {n_steps} steps")
+    for s, r in bt["per_scale"].items():
+        log(f"[horizon] bench_train {card}: scale {s} bucket {tuple(r['bucket_hw'])}: "
+            f"s/step {r['s_per_step']:.4f}, {r['images_per_sec']:.3f} images/s, MFU "
+            f"{r['mfu_model']} (model) / {r['mfu_padded']} (padded)")
+    r = bt["proposal_4096_at_1200"]
+    log(f"[horizon] bench_train {card}: 4000 -> 4096 proposals at scale 1200: s/step "
+        f"{r['s_per_step']:.4f}, {r['images_per_sec']:.3f} images/s, MFU {r['mfu_model']}, peak "
+        f"device memory {r['peak_device_gb']} GB; protocol rate (harmonic mean of the five) "
+        f"{bt['value']} images/s, mean MFU {bt['mfu_model_protocol']}")
+    torch.cuda.empty_cache()
+
+    _zero_launches()
+    ms = profile_step.main([], log=lambda m: log(f"[horizon] profile_step: {m}"))
+    launches["profile_step"] = _launches()
+    check(all(np.isfinite(v) and v > 0 for v in ms.values()), f"profile_step: {ms}")
+    torch.cuda.empty_cache()
+
+    _zero_launches()
+    ev = bench_eval.main(["--modes", "seq,batched", "--n_images", "8", "--eval_batch",
+                          str(EVAL_BATCH), "--n_props", str(N_PROPS)],
+                         log=lambda m: log(f"[horizon] bench_eval {card}: {m}"))
+    launches["bench_eval"] = _launches()
+    check(all(np.isfinite(r["value"]) and 0 < r["mfu_model"] < 1 for r in ev.values()),
+          f"bench_eval: {ev}")
+    host = bench_host_eval.main(["--images", "100", "--coco_images", "30"],
+                                log=lambda m: log(f"[horizon] bench_host_eval: {m}"))
+    check(host["kept_dets_mean"] > 0 and host["rles_mean"] > 0, f"bench_host_eval: {host}")
+    log(f"[horizon] phase {time.perf_counter() - t_phase:.1f} s; RoIAlign (forward, backward) "
+        f"launches by path {launches}")
+    return launches
 
 
 def _iou_on_card(masks):
@@ -2485,6 +2637,7 @@ def main():
         del evaluator
         phase_train_reference()
         train_fwd, train_bwd = phase_train(card, work_dir, profile=args.profile)
+        horizon = phase_horizon(work_dir, card)
         cli_fwd, cli_bwd, cli_paths, cli_ckpt, cli = phase_train_cli(work_dir, card,
                                                                      profile=args.profile)
         ddp_fwd, ddp_bwd, gloo2_fwd, gloo2_bwd = phase_ddp(work_dir, card, cli)
@@ -2516,6 +2669,7 @@ def main():
                                  "train_ddp": ddp_fwd, "train_ddp_gloo2": gloo2_fwd,
                                  "eval_cli": eval_cli_fwd, "train_cli_pre": pre_fwd,
                                  **{p: v[0] for p, v in paths.items()},
+                                 **{p: v[0] for p, v in horizon.items()},
                                  **{f"eval_{b}": v[0] for b, v in bodies.items()},
                                  **{f"train_{b}": v[1] for b, v in bodies.items()}},
             **fwd_kernel,
@@ -2531,6 +2685,7 @@ def main():
                                  "train_ddp_gloo2": gloo2_bwd, "eval_cli": eval_cli_bwd,
                                  "train_cli_pre": pre_bwd,
                                  **{p: v[1] for p, v in paths.items()},
+                                 **{p: v[1] for p, v in horizon.items()},
                                  **{f"eval_{b}": 0 for b in bodies},
                                  **{f"train_{b}": v[2] for b, v in bodies.items()}},
             **bwd_kernel,

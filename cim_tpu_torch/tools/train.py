@@ -33,9 +33,11 @@ it, so that it reproduces the uninterrupted run.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import pickle
+import resource
 import socket
 import time
 import traceback
@@ -49,6 +51,7 @@ from cim_tpu_torch.data import catalog
 from cim_tpu_torch.engine.checkpoint import checkpoint_location, load_ckpt, save_ckpt
 from cim_tpu_torch.engine.stats import TrainingStats, setup_logging
 from cim_tpu_torch.engine.train import Trainer, metrics_to_floats
+from cim_tpu_torch.ops.roi_align import roi_align, roi_align_backward
 from cim_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("cim_tpu_torch.tools.train")
@@ -290,8 +293,10 @@ def main(argv=None, profile_steps=PROFILE_STEPS):
     the trainer ran under DDP, the steps that wrote a snapshot, the files
     this rank wrote, host times (the wait for the
     loader and the loop's time a step, and the loader's build time a
-    batch) and the profile's. With ranks spawned here, "ranks" holds every
-    rank's summary."""
+    batch), the profile's, and "run_end": the step reached, the device's
+    name, the process's peak device memory and host RSS, and the run's
+    RoIAlign launches, also logged as the run's last JSON line. With ranks
+    spawned here, "ranks" holds every rank's summary."""
     setup_logging()
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -313,6 +318,7 @@ def main(argv=None, profile_steps=PROFILE_STEPS):
 def _train(device, args, cfg, output_dir, profile_steps, datasets):
     """One rank's run (the whole run at world size 1)."""
     setup_logging()  # a spawned rank starts from a fresh interpreter
+    launches0 = (roi_align.kernel_launches, roi_align_backward.kernel_launches)
     catalog.DATASETS.update(datasets)
     rank, world = parallel.rank(), parallel.world_size()
     if rank != 0:
@@ -429,6 +435,18 @@ def _train(device, args, cfg, output_dir, profile_steps, datasets):
             loader.close()
             summary["loader_build_s"] = list(loader.build_seconds)
     summary["step"] = trainer.step_count
+    # the closing line: what a runner of fresh-process segments
+    # (tools/long_horizon_run.py) reads of each; the peaks are the process's
+    summary["run_end"] = {
+        "step": trainer.step_count,
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None),
+        "ru_maxrss_kb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
+        "roi_align_fwd_launches": roi_align.kernel_launches - launches0[0],
+        "roi_align_bwd_launches": roi_align_backward.kernel_launches - launches0[1],
+    }
+    logger.info(json.dumps({"run_end": summary["run_end"]}))
     return summary
 
 
