@@ -190,9 +190,9 @@ of which fails the run:
                    their own calls
 
 With --profile, one more training step (scale 1200, 2048 proposals) runs
-under torch.profiler and its device time by operator, by phase
-(cim.forward, cim.losses, cim.mining, cim.backward, cim.optimizer) and of
-each of the port's kernels is printed, and the CLI's sixth step is traced
+under torch.profiler and its device time by operator, by span (the
+cim.* spans of cim_tpu_torch/utils/trace.py) and of each of the port's
+kernels is printed, and the CLI's sixth step is traced
 (its device busy share); for each other body, one eval stack and one
 train step are profiled the same way; one image's PRM block (the AGPL
 CLI's peaks and response maps) is profiled for its device time; and
@@ -1170,7 +1170,7 @@ def _timed_steps(trainer, batch, n):
         t0 = time.perf_counter()
         m = trainer.step(batch)  # ends in a device-to-host copy of the metrics
         torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0, m, list(trainer.last_nms_rounds)))
+        out.append((time.perf_counter() - t0, m))
     return out
 
 
@@ -1211,7 +1211,7 @@ def _train_runs(card, config="resnet50_voc", tag="train"):
     check(fwd == bwd == n_steps * accum,
           f"{tag}: {fwd} forward / {bwd} backward kernel launches for {n_steps} steps x {accum}")
     for key, steps in runs.items():
-        for _, m, _ in steps:
+        for _, m in steps:
             check(all(np.isfinite(v) for v in m.values()), f"{tag} {key}: finite losses {m}")
     frozen = frozen_paths_for(cfg)
     for n, p in trainer.model.named_parameters():
@@ -1224,14 +1224,13 @@ def _train_runs(card, config="resnet50_voc", tag="train"):
         check(same == is_frozen(n, frozen),
               f"{tag} {n}: {'unchanged' if same else 'moved'} (frozen: {is_frozen(n, frozen)})")
     for key in [*TRAIN_SCALES, "4096"]:
-        secs = [s for s, _, _ in runs[key]]
-        _, last, rounds = runs[key][-1]
+        secs = [s for s, _ in runs[key]]
+        _, last = runs[key][-1]
         log(f"[{tag}] {card}: bucket {key}: s/step median {np.median(secs):.4f} "
             f"(each {[round(s, 4) for s in secs]}), {accum / np.median(secs):.2f} images/s, "
             f"peak device memory {peak_gb[key]:.2f} GB; "
             f"losses {({k: round(v, 4) for k, v in last.items() if 'loss' in k})}, "
-            f"mined_gt {[round(last[f'mined_gt_{k}'], 1) for k in range(cfg.REFINE_TIMES)]}, "
-            f"NMS rounds of its last step {rounds}")
+            f"mined_gt {[round(last[f'mined_gt_{k}'], 1) for k in range(cfg.REFINE_TIMES)]}")
     log(f"[{tag}] warm-up steps s: {[round(runs[k][0][0], 3) for k in runs if 'warm' in str(k)]}; "
         f"frozen {frozen}; launches forward {fwd}, backward {bwd}")
     return cfg, trainer, batches, runs, fwd, bwd
@@ -1269,7 +1268,7 @@ def phase_train_profile(trainer, batch, timed, tag="one train step"):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    median_ms = 1e3 * float(np.median([s for s, _, _ in timed]))
+    median_ms = 1e3 * float(np.median([s for s, _ in timed]))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1599,7 +1598,7 @@ def _ddp_rank(device, ref_cfg, batches, timed_cfg):
     torch.cuda.reset_peak_memory_stats()
     roi_align.kernel_launches = roi_align_backward.kernel_launches = 0
     timed = _timed_steps(trainer, batch, DDP_TIMED_STEPS)
-    result["timed"] = {"s": [t for t, _, _ in timed], "metrics": timed[-1][1],
+    result["timed"] = {"s": [t for t, _ in timed], "metrics": timed[-1][1],
                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "warm_peak_gb": warm_peak,
                        "launches": (roi_align.kernel_launches, roi_align_backward.kernel_launches)}
     # for comparison, not on the main path: one step with the gradients set
@@ -2490,7 +2489,7 @@ def phase_eval_paths(card, model, data_dir, props, profile=False):
             if n.startswith("Conv_Body.") and p.requires_grad]
     torch.cuda.reset_peak_memory_stats()
     roi_align.kernel_launches = roi_align_backward.kernel_launches = 0
-    (step_s, metrics, _), = _timed_steps(trainer, batch, 1)
+    (step_s, metrics), = _timed_steps(trainer, batch, 1)
     launches["train_roipool"] = (roi_align.kernel_launches, roi_align_backward.kernel_launches)
     rp_peak = torch.cuda.max_memory_allocated() / 1e9
     check(launches["train_roipool"] == (0, 0), "RoIPoolF train: no RoIAlign kernel")

@@ -47,12 +47,30 @@ from cim_tpu_torch.ops.boxes import aspect_ratio, box_voting_np, flip_boxes
 from cim_tpu_torch.ops.image import resize_bilinear_dynamic, resize_bilinear_dynamic_batched
 from cim_tpu_torch.ops.nms import nms_np, soft_nms_np
 from cim_tpu_torch.utils.device import check_on, resolve_device
+from cim_tpu_torch.utils.trace import span
 
 PAD_MULTIPLE = 128
 
 
 def _round_up(x: int, m: int) -> int:
     return int(math.ceil(x / m) * m)
+
+
+def _to_device(arrays, device):
+    """Each host array as a tensor on ``device``. A copy from pageable
+    memory waits for the card's queue: one cim.sync span each."""
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(a)
+        with span("cim.sync"):
+            out.append(t.to(device))
+    return out
+
+
+def _to_host(scores):
+    """The scores on the host, as numpy (the wait for the card)."""
+    with span("cim.sync"):
+        return scores.cpu().numpy()
 
 
 def _pass_canvas(target: int, ratio_hw):
@@ -137,24 +155,25 @@ class Evaluator:
 
         passes = self.tta_pass_list(cfg)
         total = None
-        for target, hflip in passes:
-            s = np.float32(target) / max_side
-            img, (ovh, ovw) = resize_bilinear_dynamic(
-                base, _pass_canvas(target, ratio_hw), s, (im_h, im_w), hflip=hflip
-            )
-            if cfg.transform_mode == "ToTensor":
-                img = self._normalize(img)
-                img[ovh:] = 0.0
-                img[:, ovw:] = 0.0
-            if hflip:
-                # flip about the original width, then scale
-                r = flip_boxes(rois, im_w) * float(s)
-                m = masks_f
-            else:
-                r = rois * float(s)
-                m = masks
-            sc = self._scores(self.model(img, r, m, valid, im_hw=(ovh, ovw)))
-            total = sc if total is None else total + sc
+        with span("cim.eval.passes"):
+            for target, hflip in passes:
+                s = np.float32(target) / max_side
+                img, (ovh, ovw) = resize_bilinear_dynamic(
+                    base, _pass_canvas(target, ratio_hw), s, (im_h, im_w), hflip=hflip
+                )
+                if cfg.transform_mode == "ToTensor":
+                    img = self._normalize(img)
+                    img[ovh:] = 0.0
+                    img[:, ovw:] = 0.0
+                if hflip:
+                    # flip about the original width, then scale
+                    r = flip_boxes(rois, im_w) * float(s)
+                    m = masks_f
+                else:
+                    r = rois * float(s)
+                    m = masks
+                sc = self._scores(self.model(img, r, m, valid, im_hw=(ovh, ovw)))
+                total = sc if total is None else total + sc
         return total / float(len(passes))
 
     def _base_image(self, image_u8):
@@ -208,16 +227,14 @@ class Evaluator:
         }
 
     def im_detect_all_fused(self, im, boxes, masks):
-        req = self._prepare_raw(im, boxes, masks)
-        dev = self.device
-        scores = self._fused_forward(
-            torch.from_numpy(req["image"]).to(dev),
-            torch.from_numpy(req["rois"]).to(dev),
-            torch.from_numpy(req["masks"]).to(dev),
-            torch.from_numpy(req["valid"]).to(dev),
-            req["im_h"], req["im_w"], ratio_hw=req["ratio_hw"],
-        )
-        return scores.cpu().numpy()[: req["n"]], boxes
+        with span("cim.eval.prepare"):
+            req = self._prepare_raw(im, boxes, masks)
+        with span("cim.upload"):
+            inputs = _to_device([req[k] for k in ("image", "rois", "masks", "valid")],
+                                self.device)
+        scores = self._fused_forward(*inputs, req["im_h"], req["im_w"],
+                                     ratio_hw=req["ratio_hw"])
+        return _to_host(scores)[: req["n"]], boxes
 
     # ------------------------------------------------------ per-pass path
 
@@ -263,14 +280,13 @@ class Evaluator:
     def im_detect_bbox(self, im, boxes, masks, target_scale, target_max_size):
         """One pass at one scale. im: (H, W, 3) uint8 BGR. Returns (scores
         (N, C), boxes)."""
-        req = self._prepare(im, boxes, masks, target_scale, target_max_size)
-        dev = self.device
-        scores = self._forward(
-            torch.from_numpy(req["image"]).to(dev), torch.from_numpy(req["rois"]).to(dev),
-            torch.from_numpy(req["masks"]).to(dev), torch.from_numpy(req["valid"]).to(dev),
-            req["im_h"], req["im_w"],
-        )
-        return scores.cpu().numpy()[: req["n"]], boxes
+        with span("cim.eval.prepare"):
+            req = self._prepare(im, boxes, masks, target_scale, target_max_size)
+        with span("cim.upload"):
+            inputs = _to_device([req[k] for k in ("image", "rois", "masks", "valid")],
+                                self.device)
+        scores = self._forward(*inputs, req["im_h"], req["im_w"])
+        return _to_host(scores)[: req["n"]], boxes
 
     @staticmethod
     def _hflip(im, boxes, masks):
@@ -420,26 +436,28 @@ class BatchedEvaluator(Evaluator):
         # float32 scales of every (pass, image), computed as Evaluator does
         scales = np.array([t for t, _ in passes], np.float32)[:, None] / max_side[None, :]
         # one copy a stack: the scales and the widths that hflip flips about
-        scales_t = torch.from_numpy(scales).to(dev)
-        widths = torch.tensor([[w] for _, w in im_hws], dtype=torch.float32, device=dev)
+        with span("cim.upload"):
+            scales_t, widths = _to_device(
+                [scales, np.array([[w] for _, w in im_hws], np.float32)], dev)
         masks_f = torch.flip(masks, [-1])
         base = self._base_image(images_u8)
 
         total = None
-        for p, (target, hflip) in enumerate(passes):
-            img, extents = resize_bilinear_dynamic_batched(
-                base, _pass_canvas(target, ratio_hw), scales[p], im_hws, hflip=hflip
-            )
-            if cfg.transform_mode == "ToTensor":
-                img = self._normalize(img)
-                for one, (ovh, ovw) in zip(img, extents):
-                    one[ovh:] = 0.0
-                    one[:, ovw:] = 0.0
-            s = scales_t[p][:, None, None]
-            r = (flip_boxes(rois, widths) if hflip else rois) * s
-            sc = self._scores(self.model(img, r, masks_f if hflip else masks, valid,
-                                         im_hw=extents))
-            total = sc if total is None else total + sc
+        with span("cim.eval.passes"):
+            for p, (target, hflip) in enumerate(passes):
+                img, extents = resize_bilinear_dynamic_batched(
+                    base, _pass_canvas(target, ratio_hw), scales[p], im_hws, hflip=hflip
+                )
+                if cfg.transform_mode == "ToTensor":
+                    img = self._normalize(img)
+                    for one, (ovh, ovw) in zip(img, extents):
+                        one[ovh:] = 0.0
+                        one[:, ovw:] = 0.0
+                s = scales_t[p][:, None, None]
+                r = (flip_boxes(rois, widths) if hflip else rois) * s
+                sc = self._scores(self.model(img, r, masks_f if hflip else masks, valid,
+                                             im_hw=extents))
+                total = sc if total is None else total + sc
         return total / float(len(passes))
 
     @torch.no_grad()
@@ -448,12 +466,13 @@ class BatchedEvaluator(Evaluator):
         _forward): images (B, Hp, Wp, 3), uint8 RGB normalized here with
         each member's pad beyond its (im_h, im_w) zeroed, or float32;
         returns the (B, N, C) scores on the device."""
-        if images.dtype == torch.uint8:
-            images = self._normalize(images.float())
-            for one, (h, w) in zip(images, im_hws):
-                one[h:] = 0.0
-                one[:, w:] = 0.0
-        return self._scores(self.model(images, rois, masks, valid, im_hw=list(im_hws)))
+        with span("cim.eval.passes"):
+            if images.dtype == torch.uint8:
+                images = self._normalize(images.float())
+                for one, (h, w) in zip(images, im_hws):
+                    one[h:] = 0.0
+                    one[:, w:] = 0.0
+            return self._scores(self.model(images, rois, masks, valid, im_hw=list(im_hws)))
 
     def _dispatch(self, group):
         """Queue a stack on this evaluator's device: every pass of whole
@@ -461,9 +480,9 @@ class BatchedEvaluator(Evaluator):
         each member (per-pass requests); returns the scores on the
         device."""
         reqs = [r for _, r in group]
-        dev = self.device
-        stacked = [torch.from_numpy(np.stack([r[k] for r in reqs])).to(dev)
-                   for k in ("image", "rois", "masks", "valid")]
+        with span("cim.upload"):
+            stacked = _to_device([np.stack([r[k] for r in reqs])
+                                  for k in ("image", "rois", "masks", "valid")], self.device)
         im_hws = [(r["im_h"], r["im_w"]) for r in reqs]
         if "ratio_hw" in reqs[0]:
             return self._fused_forward_batched(*stacked, im_hws, reqs[0]["ratio_hw"])
@@ -478,7 +497,7 @@ class BatchedEvaluator(Evaluator):
         queued = [(part, rep._dispatch(part)) for part, rep in zip(parts, self._replicas)]
         out = []
         for part, scores in queued:
-            scores = scores.cpu().numpy()
+            scores = _to_host(scores)
             out += [(idx, scores[i][: req["n"]]) for i, (idx, req) in enumerate(part)]
         return out
 
@@ -486,9 +505,10 @@ class BatchedEvaluator(Evaluator):
         out = [None] * len(items)
         groups: dict = {}
         for idx, (im, boxes, masks) in enumerate(items):
-            req = self._prepare_raw(im, boxes, masks)
-            key = (req["image"].shape, req["rois"].shape[0], req["ratio_hw"])
-            groups.setdefault(key, []).append((idx, req))
+            with span("cim.eval.prepare"):
+                req = self._prepare_raw(im, boxes, masks)
+                key = (req["image"].shape, req["rois"].shape[0], req["ratio_hw"])
+                groups.setdefault(key, []).append((idx, req))
             if len(groups[key]) == self.batch_size:
                 for i, scores in self._run_stack(groups.pop(key)):
                     out[i] = scores
@@ -511,12 +531,17 @@ class BatchedEvaluator(Evaluator):
         for w0 in range(0, len(items), window):
             groups: dict = {}
             for idx, (im, boxes, masks) in enumerate(items[w0: w0 + window], start=w0):
-                for im_x, b_x, m_x, scale, max_size in self.iter_tta_inputs(im, boxes, masks):
-                    req = self._prepare(im_x, b_x, m_x, scale, max_size)
-                    key = (req["image"].shape, req["rois"].shape[0])
-                    groups.setdefault(key, []).append((idx, req))
-                    if len(groups[key]) == self.batch_size:
-                        self._scatter(self._run_stack(groups.pop(key)), out_sum, out_cnt)
+                full = []  # the stacks this image's passes fill, run once it is prepared
+                with span("cim.eval.prepare"):
+                    for im_x, b_x, m_x, scale, max_size in self.iter_tta_inputs(im, boxes,
+                                                                                masks):
+                        req = self._prepare(im_x, b_x, m_x, scale, max_size)
+                        key = (req["image"].shape, req["rois"].shape[0])
+                        groups.setdefault(key, []).append((idx, req))
+                        if len(groups[key]) == self.batch_size:
+                            full.append(groups.pop(key))
+                for group in full:
+                    self._scatter(self._run_stack(group), out_sum, out_cnt)
             for group in groups.values():  # partial stacks, at their own size
                 self._scatter(self._run_stack(group), out_sum, out_cnt)
         return [(out_sum[i] / out_cnt[i], items[i][1]) for i in range(len(items))]

@@ -21,6 +21,7 @@ from __future__ import annotations
 import logging
 import os
 from collections import defaultdict
+from concurrent.futures import wait
 
 import torch
 
@@ -34,8 +35,11 @@ from cim_tpu_torch.engine.test import (
 )
 from cim_tpu_torch.utils.device import resolve_device
 from cim_tpu_torch.utils.io import load_object, save_object
+from cim_tpu_torch.utils.trace import Profile, span
 
 logger = logging.getLogger(__name__)
+
+PROFILE_IMAGES = 8  # images --profile_dir traces, in the evaluator's calls after the first
 
 
 def get_roidb_and_dataset(cfg, dataset_name, proposal_file, ind_range=None):
@@ -92,7 +96,8 @@ class _AsyncPost:
         self._futures = {}
 
     def _one(self, scores, boxes):
-        return self._post(self._cfg, scores, boxes)[2]
+        with span("cim.eval.post"):
+            return self._post(self._cfg, scores, boxes)[2]
 
     def submit(self, key, scores, boxes):
         self._futures[key] = self._pool.submit(self._one, scores, boxes)
@@ -102,6 +107,36 @@ class _AsyncPost:
             return {k: f.result() for k, f in self._futures.items()}
         finally:
             self._pool.shutdown()
+
+
+class _EvalProfile:
+    """torch.profiler over test_net's evaluator calls from the second (the
+    first builds and warms) until PROFILE_IMAGES images, every thread
+    recorded, so that the trace also holds _AsyncPost's cim.eval.post
+    spans. Before it stops, the post-processing submitted so far finishes."""
+
+    def __init__(self, profile_dir, device, post):
+        self.dir, self.device, self.post = profile_dir, device, post
+        self.prof, self.images, self.calls = None, 0, 0
+
+    def before_call(self):
+        if self.dir and self.calls == 1:
+            self.prof = Profile(self.dir, resolve_device(self.device), all_threads=True)
+        self.calls += 1
+
+    def after_call(self, n_images: int):
+        if self.prof is not None:
+            self.images += n_images
+            if self.images >= PROFILE_IMAGES:
+                self.stop()
+
+    def stop(self):
+        if self.prof is None:
+            return
+        if self.post is not None:
+            wait(list(self.post._futures.values()))
+        self.prof.stop(images=self.images)
+        self.prof = None
 
 
 def _cache_key(check_corloc: bool) -> str:
@@ -129,6 +164,7 @@ def test_net(
     evaluator=None,
     device="cuda",
     timers=None,
+    profile_dir=None,
 ):
     """Single-device dataset loop. model: a CIMModel on ``device`` (the
     card unless the caller passes device="cpu").
@@ -137,7 +173,9 @@ def test_net(
     BatchedEvaluator (above 1) to reuse. timers: a defaultdict(Timer)
     that receives the loop's timers ("im_detect_bbox": the evaluator's
     calls). Without ind_range each record also carries its post-processed
-    detections (the _AsyncPost cache) after the pickle is written."""
+    detections (the _AsyncPost cache) after the pickle is written.
+    profile_dir: write a torch.profiler trace of the evaluator's calls
+    from the second on (PROFILE_IMAGES images) there."""
     roidb, dataset, start_ind, end_ind, total_num_images = get_roidb_and_dataset(
         cfg, dataset_name, proposal_file, ind_range
     )
@@ -148,6 +186,7 @@ def test_net(
     # a --range child's records are post-processed by the parent, from the
     # range pickle, so it runs no worker
     post = _AsyncPost(cfg, check_corloc) if ind_range is None else None
+    profile = _EvalProfile(profile_dir, device, post)
     eval_batch = int(cfg.TPU.EVAL_BATCH or 1)
     if eval_batch > 1:
         # cross-image batched TTA (engine.test.BatchedEvaluator), each
@@ -160,6 +199,7 @@ def test_net(
         for w0 in range(0, num_images, window):
             chunk = roidb[w0: w0 + window]
             items = [(image_loader(e), e["boxes"], e["masks"]) for e in chunk]
+            profile.before_call()
             timers["im_detect_bbox"].tic()
             results = evaluator.im_detect_all_many(items, window)
             timers["im_detect_bbox"].toc(average=False)
@@ -167,6 +207,7 @@ def test_net(
                 all_scores[e["image"]] = {"scores": scores, "boxes": boxes}
                 if post is not None:
                     post.submit(e["image"], scores, boxes)
+            profile.after_call(len(chunk))
             done = min(w0 + window, num_images)
             ave = timers["im_detect_bbox"].total_time / done
             logger.info(
@@ -181,12 +222,14 @@ def test_net(
         evaluator = evaluator or Evaluator(cfg, model, device=device)
         for i, entry in enumerate(roidb):
             im = image_loader(entry)
+            profile.before_call()
             timers["im_detect_bbox"].tic()
             scores, boxes = evaluator.im_detect_all(im, entry["boxes"], entry["masks"])
             timers["im_detect_bbox"].toc()
             all_scores[entry["image"]] = {"scores": scores, "boxes": boxes}
             if post is not None:
                 post.submit(entry["image"], scores, boxes)
+            profile.after_call(1)
             if i % 10 == 0:
                 ave = timers["im_detect_bbox"].average_time
                 logger.info(
@@ -195,6 +238,7 @@ def test_net(
                     start_ind + num_images, ave, int((num_images - i - 1) * ave),
                 )
 
+    profile.stop()
     det_name = _det_basename(check_corloc) + ".pkl"
     if ind_range is not None:
         det_name = f"{det_name[:-4]}_range_{ind_range[0]}_{ind_range[1]}.pkl"
@@ -239,18 +283,19 @@ def run_inference(
     evaluator=None,
     device="cuda",
     timers=None,
+    profile_dir=None,
 ):
     """Top-level inference + evaluation (reference run_inference :90-151).
     With ind_range only that slice is processed and pickled, and
-    evaluation is skipped. timers: as test_net's. Returns (results,
-    all_boxes, all_scores)."""
+    evaluation is skipped. timers and profile_dir: as test_net's. Returns
+    (results, all_boxes, all_scores)."""
     dataset_name = cfg.TEST.DATASETS[0]
     proposal_file = cfg.TEST.PROPOSAL_FILES[0] if cfg.TEST.PROPOSAL_FILES else None
     all_scores, roidb, dataset = test_net(
         cfg, model, dataset_name, proposal_file, output_dir,
         ind_range=tuple(ind_range) if ind_range else None,
         check_corloc=check_corloc, image_loader=image_loader,
-        evaluator=evaluator, device=device, timers=timers,
+        evaluator=evaluator, device=device, timers=timers, profile_dir=profile_dir,
     )
     if ind_range:
         return None, None, all_scores

@@ -35,7 +35,6 @@ from typing import Dict, List
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from cim_tpu_torch import parallel
 from cim_tpu_torch.engine.optimizer import lr_schedule, make_optimizer
@@ -43,6 +42,7 @@ from cim_tpu_torch.mining.cim import MiningParams, PseudoLabels, cim_layer
 from cim_tpu_torch.mining.losses import cls_iou_loss, mil_bag_loss, pcl_loss
 from cim_tpu_torch.models.builder import build_model
 from cim_tpu_torch.utils.device import resolve_device
+from cim_tpu_torch.utils.trace import span
 
 LOSS_KEYS = ("bag_loss", "pcl_loss", "cls_loss", "iou_loss")
 
@@ -66,8 +66,7 @@ def derive_seed(*parts: int) -> int:
     return int.from_bytes(digest[:8], "little") & (2**63 - 1)
 
 
-def mine_pseudo_labels(cfg, out, batch, generator=None, seed: int = 0,
-                       nms_rounds=None) -> List[PseudoLabels]:
+def mine_pseudo_labels(cfg, out, batch, generator=None, seed: int = 0) -> List[PseudoLabels]:
     """CIM mining of every refine branch, without gradient: branch 0 mines
     from (predict_cls, predict_det), branch k from branch k-1's refine
     scores. With anti-noise sampling, branch k draws from ``generator``
@@ -89,7 +88,7 @@ def mine_pseudo_labels(cfg, out, batch, generator=None, seed: int = 0,
         with torch.no_grad():
             pseudo.append(cim_layer(src_cls.detach(), src_det.detach(), labels, iou_map,
                                     asy_iou_map, batch["valid"], params_k,
-                                    generator=generator, nms_rounds=nms_rounds))
+                                    generator=generator))
     return pseudo
 
 
@@ -129,29 +128,28 @@ def losses_from_pseudo_labels(cfg, out, batch, pseudo) -> Dict[str, torch.Tensor
     return losses
 
 
-def compute_losses(cfg, out, batch, generator=None, seed: int = 0,
-                   nms_rounds=None) -> Dict[str, torch.Tensor]:
+def compute_losses(cfg, out, batch, generator=None, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Mining, then the losses, of one image (cim_tpu compute_losses plus
     the total). batch: rois / masks / valid / labels / mat / iou_map /
     asy_iou_map on the device; the IoU maps may be float16 and are upcast
     here."""
-    with record_function("cim.mining"):
-        pseudo = mine_pseudo_labels(cfg, out, batch, generator, seed, nms_rounds)
+    with span("cim.mining"):
+        pseudo = mine_pseudo_labels(cfg, out, batch, generator, seed)
     return losses_from_pseudo_labels(cfg, out, batch, pseudo)
 
 
 def make_loss_fn(cfg, model):
-    """loss_fn(batch, generator, seed, nms_rounds) -> (total, losses).
+    """loss_fn(batch, generator, seed) -> (total, losses).
     batch["image_hw"], when present, is the host (h, w) of the image
     inside its zero-padded bucket."""
 
-    def loss_fn(batch, generator=None, seed: int = 0, nms_rounds=None):
+    def loss_fn(batch, generator=None, seed: int = 0):
         im_hw = batch.get("image_hw")
-        with record_function("cim.forward"):
+        with span("cim.forward"):
             out = model(batch["image"], batch["rois"], batch["masks"], batch["valid"],
                         im_hw=None if im_hw is None else (int(im_hw[0]), int(im_hw[1])))
-        with record_function("cim.losses"):
-            losses = compute_losses(cfg, out, batch, generator, seed, nms_rounds)
+        with span("cim.losses"):
+            losses = compute_losses(cfg, out, batch, generator, seed)
         return losses["total_loss"], losses
 
     return loss_fn
@@ -161,7 +159,11 @@ def metrics_to_floats(metrics) -> Dict[str, float]:
     """Trainer.step_async's metrics as floats, read from the device in
     one copy (the one wait for the step)."""
     keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
-    values = torch.stack([metrics[k] for k in keys]).tolist() if keys else []
+    values = []
+    if keys:
+        stacked = torch.stack([metrics[k] for k in keys])
+        with span("cim.sync"):
+            values = stacked.tolist()
     out = dict(metrics)
     out.update(zip(keys, values))
     return out
@@ -181,10 +183,10 @@ class Trainer:
     lr_schedule(step). It returns the per-microbatch mean of every loss
     metric and the LR, as floats. step_async(batch) runs the same step and
     returns the metrics as tensors on the device, without waiting for
-    them. The phases are labelled for
-    torch.profiler (cim.forward, cim.losses, cim.mining, cim.backward,
-    cim.optimizer); without a profiler a label is one range push and
-    pop per phase.
+    them. The phases, the uploads and the host's waits for the card are
+    spans of utils.trace (cim.forward, cim.losses, cim.mining,
+    cim.backward, cim.optimizer, cim.upload, cim.sync); without a profiler
+    a span is one flag check.
     """
 
     def __init__(self, cfg, device="cuda", seed: int = 0,
@@ -212,7 +214,6 @@ class Trainer:
         self.loss_fn = make_loss_fn(cfg, self.ddp or self.model)
         self.generator = torch.Generator(device=self.device)
         self.step_count = 0
-        self.last_nms_rounds: list = []  # NMS rounds of the last step's minings
 
     def load_weights(self, state_dict):
         """Load a model state_dict (e.g. utils.jax_weights.state_dict_from_jax)
@@ -227,13 +228,16 @@ class Trainer:
         on. numpy arrays are copied from pageable memory, which holds the
         host until the copy is done."""
         mb = {}
-        for k, v in batch.items():
-            if k == "image_hw":
-                mb[k] = tuple(int(x) for x in v[i])
-            elif isinstance(v, torch.Tensor):
-                mb[k] = v[i].to(self.device, non_blocking=True)
-            else:
-                mb[k] = torch.from_numpy(np.ascontiguousarray(v[i])).to(self.device)
+        with span("cim.upload"):
+            for k, v in batch.items():
+                if k == "image_hw":
+                    mb[k] = tuple(int(x) for x in v[i])
+                elif isinstance(v, torch.Tensor):
+                    mb[k] = v[i].to(self.device, non_blocking=True)
+                else:
+                    host = torch.from_numpy(np.ascontiguousarray(v[i]))
+                    with span("cim.sync"):
+                        mb[k] = host.to(self.device)
         return mb
 
     def step(self, batch) -> Dict[str, float]:
@@ -244,10 +248,9 @@ class Trainer:
         end: every loss metric as a 0-d tensor on the device, and "lr" as a
         float. Reading a metric waits for the step, so a training loop
         reads step i's after it has dispatched step i + 1. Mining's greedy
-        NMS still waits for the card once a round."""
+        NMS still waits for the card once a round (a cim.sync span each)."""
         accum = batch["labels"].shape[0]
         self.optimizer.zero_grad(set_to_none=self.ddp is None)
-        self.last_nms_rounds = []
         sums = None
         for i in range(accum):
             # in a group, only the last microbatch's backward all-reduces
@@ -255,9 +258,8 @@ class Trainer:
             last = self.ddp is None or i == accum - 1
             with contextlib.nullcontext() if last else self.ddp.no_sync():
                 total, losses = self.loss_fn(
-                    self.microbatch(batch, i), self.generator, self.mining_seed(i),
-                    self.last_nms_rounds)
-                with record_function("cim.backward"):
+                    self.microbatch(batch, i), self.generator, self.mining_seed(i))
+                with span("cim.backward"):
                     total.backward()  # gradients sum over microbatches in .grad
             vals = torch.stack([v.detach().float() for v in losses.values()])
             sums = vals if sums is None else sums + vals
@@ -267,7 +269,7 @@ class Trainer:
             dist.all_reduce(means)
             means = means / self.world
         lr = lr_schedule(self.cfg, self.step_count)
-        with record_function("cim.optimizer"):
+        with span("cim.optimizer"):
             self.optimizer.step(lr)
         self.step_count += 1
         metrics = dict(zip(losses.keys(), means.unbind()))

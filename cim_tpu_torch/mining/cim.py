@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from cim_tpu_torch.ops.nms import greedy_nms_from_iou
+from cim_tpu_torch.utils.trace import span
 
 NEG = -1e30
 
@@ -75,7 +76,8 @@ class PseudoLabels(NamedTuple):
 def seed_count(p_seed: float, n_valid: torch.Tensor) -> torch.Tensor:
     """keep_count = ceil(p_seed * N) in float32, N the valid proposal count
     (reference heads.py:332)."""
-    p = torch.tensor(p_seed, dtype=torch.float32, device=n_valid.device)
+    with span("cim.sync"):  # a copy from pageable memory waits for the card's queue
+        p = torch.tensor(p_seed, dtype=torch.float32, device=n_valid.device)
     return torch.ceil(p * n_valid.float()).to(torch.int64)
 
 
@@ -123,8 +125,7 @@ def _budget_select(labels, budget: int):
     return torch.sort(-labels, stable=True).indices[:budget]
 
 
-def _seeds_and_nms(scores_cn, iou_map, valid, keep_count, k_seed, nms_thr,
-                   rounds=None):
+def _seeds_and_nms(scores_cn, iou_map, valid, keep_count, k_seed, nms_thr):
     """For every class at once: top-k seeds + greedy mask-IoU NMS.
     scores_cn: (C, N). Returns (seed_idx (C, K), keep_seed (C, K) bool)."""
     masked = torch.where(valid[None, :], scores_cn, NEG)
@@ -133,20 +134,18 @@ def _seeds_and_nms(scores_cn, iou_map, valid, keep_count, k_seed, nms_thr,
     seed_valid = (pos < keep_count)[None, :] & valid[seed_idx]
     iou_seed = iou_map[seed_idx[:, :, None], seed_idx[:, None, :]]  # (C, K, K)
     seed_scores = torch.gather(masked, 1, seed_idx)
-    keep_seed = greedy_nms_from_iou(iou_seed, seed_scores, nms_thr, valid=seed_valid,
-                                    rounds=rounds)
+    keep_seed = greedy_nms_from_iou(iou_seed, seed_scores, nms_thr, valid=seed_valid)
     return seed_idx, keep_seed
 
 
 def cim_mine(predict_cls, predict_det, labels, iou_map, asy_iou_map, valid,
-             params: MiningParams, nms_rounds=None) -> MinedGT:
+             params: MiningParams) -> MinedGT:
     """CIM pseudo-GT mining (reference CIM_label, heads.py:319-407).
 
     predict_cls: (N, C) class scores, background stripped; predict_det:
     (N, C) detector scores or (N, 1) class-agnostic; labels: (C,) multi-hot;
     iou_map / asy_iou_map: (N, N) float (asy[i, j] = extent to which i
-    contains j); valid: (N,) bool. nms_rounds: optional list that gets the
-    NMS round count appended.
+    contains j); valid: (N,) bool.
     """
     n, c = predict_cls.shape
     num_classes = c
@@ -172,7 +171,7 @@ def cim_mine(predict_cls, predict_det, labels, iou_map, asy_iou_map, valid,
 
     # phase A: per-class seeds + NMS
     seed_idx, keep_seed = _seeds_and_nms(predict_cls.T, iou_map, valid, keep_count,
-                                         k_seed, params.nms_thr, nms_rounds)
+                                         k_seed, params.nms_thr)
 
     # phase B: containment mining + winner reduction
     row_ok = asy_iou_flag & valid
@@ -192,8 +191,7 @@ def cim_mine(predict_cls, predict_det, labels, iou_map, asy_iou_map, valid,
     return MinedGT(gt_labels, gt_weights, gt_mask, asy_iou_flag)
 
 
-def mist_mine(preds, labels, iou_map, valid, params: MiningParams,
-              nms_rounds=None) -> MinedGT:
+def mist_mine(preds, labels, iou_map, valid, params: MiningParams) -> MinedGT:
     """MIST fallback mining (reference MIST_label, heads.py:261-316):
     top-p seeds + NMS only, no containment step."""
     n, c = preds.shape
@@ -209,7 +207,7 @@ def mist_mine(preds, labels, iou_map, valid, params: MiningParams,
         c = budget
 
     seed_idx, keep_seed = _seeds_and_nms(preds.T, iou_map, valid, keep_count, k_seed,
-                                         params.nms_thr, nms_rounds)
+                                         params.nms_thr)
     kept = _map_classes(lambda s_idx, s_keep: _scatter_max(n, s_idx, s_keep),
                         (seed_idx, keep_seed), c)
     eligible = kept & (labels > 0)[:, None]
@@ -283,7 +281,8 @@ def assign_pseudo_labels(mined: MinedGT, iou_map, valid, params: MiningParams) -
 
     # background assignment, and big proposals forced to background
     bg_onehot = torch.zeros((c1,), dtype=dtype, device=iou_map.device)
-    bg_onehot[0] = 1.0
+    with span("cim.sync"):  # the value is copied from the host, which waits for the card
+        bg_onehot[0] = 1.0
     bg = ((max_v < params.cls_thr) & ~ignore) | ~mined.asy_iou_flag
     pseudo_labels = torch.where(bg[:, None], bg_onehot[None, :], pseudo_labels)
 
@@ -303,7 +302,7 @@ def assign_pseudo_labels(mined: MinedGT, iou_map, valid, params: MiningParams) -
 
 def cim_layer(predict_cls, predict_det, labels, iou_map, asy_iou_map, valid,
               params: MiningParams, generator=None, using_cim: bool = True,
-              uniforms=None, nms_rounds=None) -> PseudoLabels:
+              uniforms=None) -> PseudoLabels:
     """Full CIM_layer forward (reference heads.py:409-502).
 
     predict_cls / predict_det are (N, C+1) head outputs (bg at column 0) or
@@ -317,10 +316,10 @@ def cim_layer(predict_cls, predict_det, labels, iou_map, asy_iou_map, valid,
 
     if using_cim:
         mined = cim_mine(predict_cls, predict_det, labels, iou_map, asy_iou_map, valid,
-                         params, nms_rounds)
+                         params)
     else:
         preds = predict_cls * predict_det if predict_det is not None else predict_cls
-        mined = mist_mine(preds, labels, iou_map, valid, params, nms_rounds)
+        mined = mist_mine(preds, labels, iou_map, valid, params)
 
     if params.anti_noise:
         # mined rows per class are argmaxes of seed columns, so n_c is

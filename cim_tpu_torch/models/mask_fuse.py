@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from cim_tpu_torch.models.layers import Conv2d, Linear
 from cim_tpu_torch.ops.roi_align import roi_align, roi_pool
+from cim_tpu_torch.utils.trace import span
 
 ROI_METHODS = ("RoIAlign", "RoIPoolF")
 
@@ -57,25 +58,26 @@ class MaskFuse(nn.Module):
         (B, H, W, C), rois (B, N, 4), masks (B, N, 7, 7) and valid_hw None
         or one extent per image -> (B, N, hidden_dim); the conv and the FCs
         run on the B * N rows at once."""
-        if self.dtype is not None:
-            features = features.to(self.dtype)
-        if self.roi_method == "RoIAlign":
-            box_x = roi_align(
-                features.contiguous(), rois, self.roi_size, self.spatial_scale,
-                self.sampling_ratio, self.max_adaptive_grid, valid_hw,
-            )  # (N, R, R, C), or (B, N, R, R, C)
-        else:
-            box_x = roi_pool(features, rois, self.roi_size, self.spatial_scale,
-                             valid_hw=valid_hw)
-        lead = box_x.shape[:-3]
-        box_x = box_x.reshape(-1, *box_x.shape[-3:])
-        mask_x = box_x * masks.reshape(-1, *masks.shape[-2:]).to(box_x.dtype)[..., None]
-        x = torch.cat([box_x, mask_x], dim=-1).permute(0, 3, 1, 2)  # NCHW view of NHWC
-        conv, fc1, fc2 = self.mask_branch[0], self.seg_fc[0], self.seg_fc[2]
-        x = torch.relu(conv.forward_int8(x) if self.int8_eval else conv(x))
-        # flatten the logical (C, H, W) order whatever the memory format, so
-        # seg_fc.0 reads the reference's weight layout
-        x = x.reshape(x.shape[0], -1)
-        x = torch.relu(fc1.forward_int8(x) if self.int8_eval else fc1(x))
-        x = torch.relu(fc2(x))
-        return x.float().reshape(*lead, -1)
+        with span("cim.mask_fuse"):
+            if self.dtype is not None:
+                features = features.to(self.dtype)
+            if self.roi_method == "RoIAlign":
+                box_x = roi_align(
+                    features.contiguous(), rois, self.roi_size, self.spatial_scale,
+                    self.sampling_ratio, self.max_adaptive_grid, valid_hw,
+                )  # (N, R, R, C), or (B, N, R, R, C)
+            else:
+                box_x = roi_pool(features, rois, self.roi_size, self.spatial_scale,
+                                 valid_hw=valid_hw)
+            lead = box_x.shape[:-3]
+            box_x = box_x.reshape(-1, *box_x.shape[-3:])
+            mask_x = box_x * masks.reshape(-1, *masks.shape[-2:]).to(box_x.dtype)[..., None]
+            x = torch.cat([box_x, mask_x], dim=-1).permute(0, 3, 1, 2)  # NCHW view of NHWC
+            conv, fc1, fc2 = self.mask_branch[0], self.seg_fc[0], self.seg_fc[2]
+            x = torch.relu(conv.forward_int8(x) if self.int8_eval else conv(x))
+            # flatten the logical (C, H, W) order whatever the memory format, so
+            # seg_fc.0 reads the reference's weight layout
+            x = x.reshape(x.shape[0], -1)
+            x = torch.relu(fc1.forward_int8(x) if self.int8_eval else fc1(x))
+            x = torch.relu(fc2(x))
+            return x.float().reshape(*lead, -1)

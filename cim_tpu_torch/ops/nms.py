@@ -14,11 +14,12 @@ import numpy as np
 import torch
 
 from cim_tpu_torch import native
+from cim_tpu_torch.utils.trace import span
 
 NEG_INF = -1e30
 
 
-def greedy_nms_from_iou(iou, scores, thresh, valid=None, rounds=None):
+def greedy_nms_from_iou(iou, scores, thresh, valid=None):
     """Exact greedy NMS given IoU matrices, batched over leading axes.
 
     iou: (..., N, N); scores: (..., N); valid: optional (..., N) bool
@@ -29,10 +30,10 @@ def greedy_nms_from_iou(iou, scores, thresh, valid=None, rounds=None):
 
     As in cim_tpu, the greedy outcome is resolved a "generation" of
     candidates per round with (N, N) reductions; the loop ends when no
-    valid candidate is undecided, which costs one host sync per round. A
+    valid candidate is undecided, which costs one host sync per round and
+    one more for the test that ends the loop (a cim.sync span each). A
     finished batch row is a fixed point of the round, so rows that finish
-    early are unaffected by later rounds. rounds: optional list that gets
-    this call's round count appended.
+    early are unaffected by later rounds.
     """
     n = scores.shape[-1]
     if valid is None:
@@ -46,15 +47,14 @@ def greedy_nms_from_iou(iou, scores, thresh, valid=None, rounds=None):
          & valid[..., None, :] & valid[..., :, None])
     kept = torch.zeros_like(valid)
     suppressed = torch.zeros_like(valid)
-    count = 0
-    while bool((valid & ~kept & ~suppressed).any()):
+    while True:
+        undecided = (valid & ~kept & ~suppressed).any()
+        with span("cim.sync"):
+            if not bool(undecided):
+                return kept
         blocked = (m & ~suppressed[..., None, :]).any(-1)
         kept = kept | (valid & ~suppressed & ~blocked)
         suppressed = suppressed | ((m & kept[..., None, :]).any(-1) & ~kept)
-        count += 1
-    if rounds is not None:
-        rounds.append(count)
-    return kept
 
 
 def nms_np(dets: np.ndarray, thresh: float) -> list:

@@ -58,6 +58,9 @@ def run_e2e(cfg, model, args, device, log=print):
             catalog.ANN_FN: os.path.join(data_dir, "ann.json"),
         })
         cfg.TEST.DATASETS = ("bench_e2e",)
+        # the gt roidb cache is keyed by the dataset's name alone: keep it in
+        # this run's directory, so that no later run reads these image paths
+        cfg.DATA_DIR = data_dir
         cfg.TPU.EVAL_BATCH = args.eval_batch
         props = os.path.join(data_dir, "props.pkl")
         out_dir = os.path.join(data_dir, "out")

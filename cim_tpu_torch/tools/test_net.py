@@ -60,6 +60,9 @@ def parse_args(argv=None):
                         help="train-set discovery protocol (CorLoc and discovery.pkl); implied "
                         "by --dataset voc2012trainaug")
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of the evaluator's calls after the "
+                        "first there, the NMS worker's thread included")
     return parser.parse_args(argv)
 
 
@@ -164,7 +167,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     results, all_boxes, all_scores = run_inference(
         cfg, model, output_dir, check_corloc=check_corloc, check_expected_results=True,
-        ind_range=args.range, device=device, timers=timers)
+        ind_range=args.range, device=device, timers=timers, profile_dir=args.profile_dir)
     summary["seconds"]["inference"] = time.perf_counter() - t0
     summary["seconds"]["evaluator"] = timers["im_detect_bbox"].total_time
     if args.range:

@@ -53,6 +53,7 @@ from cim_tpu_torch.engine.stats import TrainingStats, setup_logging
 from cim_tpu_torch.engine.train import Trainer, metrics_to_floats
 from cim_tpu_torch.ops.roi_align import roi_align, roi_align_backward
 from cim_tpu_torch.utils.device import resolve_device
+from cim_tpu_torch.utils.trace import Profile
 
 logger = logging.getLogger("cim_tpu_torch.tools.train")
 
@@ -248,43 +249,6 @@ def _load_weights(trainer, args):
         logger.info("Loaded Detectron pkl weights from %s", args.load_detectron)
 
 
-class _Profile:
-    """torch.profiler over a window of steps: the trace goes to
-    <profile_dir>/trace.json, and the card's busy share of the window's
-    wall time to the log and the run's summary."""
-
-    def __init__(self, profile_dir, device):
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        self.dir, self.device = profile_dir, device
-        self.prof = profile(activities=activities)
-        self.prof.__enter__()
-        self.t0 = time.perf_counter()
-
-    def stop(self, steps: int) -> dict:
-        from torch.autograd import DeviceType
-
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall_ms = 1e3 * (time.perf_counter() - self.t0)
-        self.prof.__exit__(None, None, None)
-        os.makedirs(self.dir, exist_ok=True)
-        path = os.path.join(self.dir, "trace.json")
-        self.prof.export_chrome_trace(path)
-        # kernels and copies only: the cim.* labels also appear as device
-        # ranges, which span idle time
-        busy_ms = sum(e.self_device_time_total for e in self.prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and not e.key.startswith("cim.")) / 1e3
-        out = {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-               "idle_share": 1.0 - busy_ms / wall_ms if wall_ms > 0 else None, "trace": path}
-        logger.info("profiler trace of %d steps written to %s: device busy %.1f of %.1f ms",
-                    steps, path, busy_ms, wall_ms)
-        return out
-
-
 def main(argv=None, profile_steps=PROFILE_STEPS):
     """Train; profile_steps: the [first, last) steps --profile_dir traces
     (on rank 0). Returns a summary of the run (rank 0's, or under torchrun
@@ -379,7 +343,7 @@ def _train(device, args, cfg, output_dir, profile_steps, datasets):
     def stop_profile():
         nonlocal profiler
         flush_pending()  # keep the last step in the trace
-        summary["profile"] = profiler.stop(step - profile_steps[0])
+        summary["profile"] = profiler.stop(steps=step - profile_steps[0])
         profiler = None
 
     try:
@@ -387,7 +351,7 @@ def _train(device, args, cfg, output_dir, profile_steps, datasets):
         t_loop = time.perf_counter()
         while step < cfg.SOLVER.MAX_ITER:
             if args.profile_dir and rank == 0 and step == profile_steps[0] and profiler is None:
-                profiler = _Profile(args.profile_dir, device)
+                profiler = Profile(args.profile_dir, device)
             if profiler is not None and step >= profile_steps[1]:
                 stop_profile()
             t0 = time.perf_counter()

@@ -81,10 +81,13 @@ def _e2e_cfg(cfg):
     return cfg
 
 
-def test_bench_eval_e2e_metrics_match_cim_tpu(capsys):
+def test_bench_eval_e2e_metrics_match_cim_tpu(capsys, tmp_path):
     config = os.path.join(REPO, "configs", "resnet50_voc.yaml")
     jcfg = _e2e_cfg(clone_cfg(jax_load_cfg(config)))
     tcfg = _e2e_cfg(load_cfg(config))
+    # the gt roidb cache is keyed by the dataset's name alone: no run of
+    # another test or session may hand cim_tpu's tool its image paths
+    jcfg.DATA_DIR = str(tmp_path)
     variables = init_variables(jcfg)
     args = argparse.Namespace(n_images=2, n_props=6, eval_batch=2)
     _root_tool("bench_eval").run_e2e(
