@@ -7,8 +7,13 @@ It needs a CUDA device and nvcc; without a device it exits non-zero and
 prints no result. It imports no JAX and nothing of cim_tpu. Phases, each
 of which fails the run:
 
-  build            compile csrc/roi_align_fwd.cu and csrc/roi_align_bwd.cu
-                   with nvcc into cim_tpu_torch/_build/, both at once
+  build            compile csrc/roi_align_fwd.cu, csrc/roi_align_bwd.cu and
+                   csrc/nms_from_iou.cu with nvcc into cim_tpu_torch/_build/,
+                   all at once
+  nms              the greedy-NMS kernel against the plain round loop on the
+                   card at mining's shapes (20 classes at K 205, 256 and
+                   410, 80 at 256; mining's three thresholds), twice to the
+                   same bits; both timed alone at K 256 and 20 classes
   roi_align        the forward kernel against its plain PyTorch version on
                    the card, at the eval path's shapes (the maps of all five
                    TTA scales, float32 and bf16, grid caps 4 and 2), at the
@@ -85,7 +90,10 @@ of which fails the run:
                    3 timed steps at each of the scale-480 and scale-1200
                    buckets with 2000 proposals padded to 2048, then a warm
                    and a timed step at scale 1200 with 4000 padded to
-                   4096; then a checkpoint save / load / one more step
+                   4096; mining one graph capture a proposal bucket and a
+                   replay each other microbatch, the graphs' pool and
+                   static inputs and the memory reserved across each
+                   capture; then a checkpoint save / load / one more step
                    against the uninterrupted trainer
   horizon          the port's training tools through their main(argv), at
                    full width (bf16, RoIAlign cap 4, GRAD_ACCUM 4):
@@ -198,6 +206,9 @@ train step are profiled the same way; one image's PRM block (the AGPL
 CLI's peaks and response maps) is profiled for its device time; and
 phase eval_paths profiles one per-pass image and one EVAL_INT8 stack.
 
+Every path that mines counts the NMS kernel's launches from 0 and checks
+one a refine branch and mined microbatch (the eval paths none).
+
 The card's nvidia-smi name and power limit come on the [device] line and
 again on a line of their own; the line before the last is a JSON object
 with the kernels' launches, errors, times and bounds; the last line is
@@ -237,6 +248,7 @@ from cim_tpu_torch.models.layers import FrozenBatchNorm, torch_default_init_
 from cim_tpu_torch.ops import _build
 from cim_tpu_torch.ops import roi_align as ra
 from cim_tpu_torch.ops.mask_iou import mask_iou_matrices
+from cim_tpu_torch.ops.nms import greedy_nms_from_iou, greedy_nms_rounds
 from cim_tpu_torch.ops.roi_align import (
     roi_align,
     roi_align_backward,
@@ -403,6 +415,17 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, n: int = 20) -> float:
+    """Device ms of one fn() call with no host time around it: n calls
+    captured in one CUDA graph, its replay timed by cuda_ms, over n."""
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, 10) / n
+
+
 def tap_cells(rois, width, valid, scale, sampling_ratio, cap) -> int:
     """Distinct (ROI, bin, feature cell) triples of nonzero bilinear weight:
     the multiply-adds per channel that RoIAlign, forward or backward, needs
@@ -425,11 +448,48 @@ def bound(n_bytes: float, ops: float, dtype):
 def phase_build():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    names = ("roi_align_fwd", "roi_align_bwd")
+    names = ("roi_align_fwd", "roi_align_bwd", "nms_from_iou")
     with ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(_build.build, names))
     log(f"[build] {[os.path.relpath(p, REPO) for p in paths]} built in "
         f"{time.perf_counter() - t0:.2f} s")
+
+
+def _nms_case(gen, classes, k):
+    """Seeds of mining's shape: a symmetric IoU matrix quantized to 0.05
+    (ties at the thresholds), scores sorted descending as the seeds are, the
+    last eighth invalid (fewer valid proposals than the seed count)."""
+    iou = torch.rand((classes, k, k), generator=gen, device="cuda")
+    iou = torch.round((iou + iou.transpose(1, 2)) * 10) / 20
+    scores = torch.rand((classes, k), generator=gen, device="cuda").sort(-1, descending=True)[0]
+    valid = (torch.arange(k, device="cuda") < k - k // 8).expand(classes, k).contiguous()
+    return iou, scores, valid
+
+
+def phase_nms():
+    """The NMS kernel against greedy_nms_rounds on the card, each case
+    twice to the same bits; returns the kernel's and the plain loop's ms
+    alone at K 256 and 20 classes (mining's seeds at the 2560 bucket)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    timed = {}
+    for classes, k in ((20, 205), (20, 256), (20, 410), (80, 256)):
+        iou, scores, valid = _nms_case(gen, classes, k)
+        for thresh in (0.25, 0.35, 0.45000000000000007):
+            got = greedy_nms_from_iou(iou, scores, thresh, valid)
+            check(torch.equal(got, greedy_nms_from_iou(iou, scores, thresh, valid)),
+                  f"nms {classes}x{k}: the same bits twice")
+            want = greedy_nms_rounds(iou, scores, thresh, valid)
+            check(torch.equal(got, want), f"nms {classes}x{k} at {thresh}: kernel == plain loop")
+        if (classes, k) == (20, 256):
+            kernel = lambda: greedy_nms_from_iou(iou, scores, 0.35, valid)  # noqa: E731
+            timed = {"card_ms": graph_ms(kernel), "call_ms": cuda_ms(kernel, 50),
+                     "plain_ms": cuda_ms(lambda: greedy_nms_rounds(iou, scores, 0.35, valid), 20),
+                     "kept": int(got.sum())}
+    log(f"[nms] kernel == plain loop at 20x205, 20x256, 20x410, 80x256, three thresholds; "
+        f"20 classes x K 256: kernel {timed['card_ms']:.4f} ms on the device "
+        f"({timed['call_ms']:.4f} ms a call with its wrapper), plain loop (host tests "
+        f"included) {timed['plain_ms']:.4f} ms, {timed['kept']} kept")
+    return timed
 
 
 def _roi_case(rng, feat_hw_c, valid, scale, n, dtype, device="cuda"):
@@ -768,8 +828,7 @@ def phase_main_path(work_dir, card):
     warm_s = evaluator.seconds.pop()
 
     torch.cuda.reset_peak_memory_stats()
-    roi_align.kernel_launches = 0
-    roi_align_backward.kernel_launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     results, all_boxes, all_scores = run_inference(
         cfg, model, os.path.join(work_dir, "out"), image_loader=_image_loader,
@@ -782,6 +841,7 @@ def phase_main_path(work_dir, card):
     check(launches == N_IMAGES * len(passes),
           f"{launches} roi_align kernel launches for {N_IMAGES} images x {len(passes)} passes")
     check(roi_align_backward.kernel_launches == 0, "eval launches no backward kernel")
+    _record_nms("eval", 0)
     check(len(all_scores) == N_IMAGES, "one score record per image")
     for name, rec in all_scores.items():
         s = rec["scores"]
@@ -877,8 +937,7 @@ def _eval_stacks(cfg, model, roidb, out_dir, card, tag):
                                 for e in roidb[:EVAL_BATCH]])
     warm_s = batched.seconds.pop()[0]
     torch.cuda.reset_peak_memory_stats()
-    roi_align.kernel_launches = 0
-    roi_align_backward.kernel_launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     results, _, all_scores = run_inference(cfg, model, out_dir, image_loader=_image_loader,
                                            evaluator=batched)
@@ -889,6 +948,7 @@ def _eval_stacks(cfg, model, roidb, out_dir, card, tag):
     check(launches == len(passes) * stacks,
           f"{tag}: {launches} roi_align kernel launches for {stacks} stacks x {len(passes)} passes")
     check(roi_align_backward.kernel_launches == 0, f"{tag}: eval launches no backward kernel")
+    _record_nms(tag if tag.startswith("eval") else f"eval_{tag}", 0)
     check(len(all_scores) == N_BATCHED_IMAGES, f"{tag}: one score record per image")
     for name, rec in all_scores.items():
         s = rec["scores"]
@@ -1004,6 +1064,7 @@ def phase_body(body, card, data_dir, props, profile=False):
     phase_train_reference(config, grads_of, tag=f"{body}_train_reference")
     _, trainer, batches, runs, train_fwd, train_bwd = _train_runs(card, config,
                                                                   tag=f"{body}_train")
+    _record_nms(f"train_{body}", train_fwd)
     if profile:
         phase_train_profile(trainer, batches[TRAIN_SCALES[-1]], runs[TRAIN_SCALES[-1]],
                             tag=f"{body}: one train step")
@@ -1196,17 +1257,35 @@ def _train_runs(card, config="resnet50_voc", tag="train"):
         f"{ {k: tuple(b['image'].shape[1:3]) + (b['rois'].shape[1],) for k, b in batches.items()} }, "
         f"set-up {time.perf_counter() - t0:.1f} s")
 
-    roi_align.kernel_launches = 0
-    roi_align_backward.kernel_launches = 0
-    runs, peak_gb = {}, {}
+    _zero_launches()
+    graphs = trainer.mining_graphs
+    runs, peak_gb, reserved_gb = {}, {}, {}
     for key, n in [*((s, TRAIN_STEPS) for s in TRAIN_SCALES), ("4096", 1)]:
         batch = batches[key]
         torch.cuda.reset_peak_memory_stats()
+        captured = len(graphs)
+        reserved = torch.cuda.memory_reserved()
         runs[f"warm {key}"] = _timed_steps(trainer, batch, 1)
+        if len(graphs) > captured:  # the warm step captured this bucket's mining graph
+            reserved_gb[key] = ((torch.cuda.memory_reserved() - reserved) / 1e9,
+                                torch.cuda.max_memory_reserved() / 1e9)
         runs[key] = _timed_steps(trainer, batch, n)
         peak_gb[key] = torch.cuda.max_memory_allocated() / 1e9
     n_steps = sum(len(v) for v in runs.values())
     fwd, bwd = roi_align.kernel_launches, roi_align_backward.kernel_launches
+    mining = {"captures": graphs.captures, "replays": graphs.replays,
+              "eager_runs": graphs.eager_runs}
+    # one mining graph a proposal bucket (2048, 4096), warmed by its first
+    # microbatch; every other microbatch replays it
+    check(mining == {"captures": 2, "eager_runs": 2, "replays": n_steps * accum - 2},
+          f"{tag}: mining {mining} for {n_steps} steps x {accum}")
+    pool, static = graphs.device_bytes()
+    log(f"[{tag}] mining graphs {len(graphs)}: their shared pool holds "
+        f"{'not told by the allocator' if pool is None else f'{pool / 1e9:.3f} GB'}, their "
+        f"static inputs {static / 1e9:.3f} GB; device memory reserved across each capturing "
+        f"warm step (grown, the step's peak reserved) GB: "
+        f"{ {k: (round(a, 3), round(b, 3)) for k, (a, b) in reserved_gb.items()} }, reserved "
+        f"now {torch.cuda.memory_reserved() / 1e9:.3f} GB")
 
     check(fwd == bwd == n_steps * accum,
           f"{tag}: {fwd} forward / {bwd} backward kernel launches for {n_steps} steps x {accum}")
@@ -1232,7 +1311,7 @@ def _train_runs(card, config="resnet50_voc", tag="train"):
             f"losses {({k: round(v, 4) for k, v in last.items() if 'loss' in k})}, "
             f"mined_gt {[round(last[f'mined_gt_{k}'], 1) for k in range(cfg.REFINE_TIMES)]}")
     log(f"[{tag}] warm-up steps s: {[round(runs[k][0][0], 3) for k in runs if 'warm' in str(k)]}; "
-        f"frozen {frozen}; launches forward {fwd}, backward {bwd}")
+        f"frozen {frozen}; launches forward {fwd}, backward {bwd}; mining {mining}")
     return cfg, trainer, batches, runs, fwd, bwd
 
 
@@ -1241,6 +1320,7 @@ def phase_train(card, work_dir, profile=False):
     checkpoint resume. Returns the forward and backward kernels' launches
     of the training runs."""
     cfg, trainer, batches, runs, fwd, bwd = _train_runs(card)
+    _record_nms("train", fwd)
 
     # checkpoint: save, load into a fresh trainer, one more step on both
     path = save_ckpt(os.path.join(work_dir, "ckpt"), trainer)
@@ -1301,6 +1381,22 @@ def _launches():
 def _zero_launches():
     roi_align.kernel_launches = 0
     roi_align_backward.kernel_launches = 0
+    greedy_nms_from_iou.kernel_launches = 0
+
+
+NMS_LAUNCHES = {}  # path: greedy_nms_from_iou's launches, read by _record_nms
+
+
+def _record_nms(path, microbatches, launches=None):
+    """The NMS kernel's launches on ``path``, since _zero_launches (or
+    ``launches``, those counted in other processes): one a refine branch
+    and mined microbatch, whether the mining ran op by op or as a graph
+    replay."""
+    n = greedy_nms_from_iou.kernel_launches if launches is None else launches
+    want = _train_cfg().REFINE_TIMES * microbatches
+    check(n == want, f"{path}: {n} NMS kernel launches, want {want} for {microbatches} "
+                     f"microbatches")
+    NMS_LAUNCHES[path] = n
 
 
 def phase_horizon(work_dir, card):
@@ -1326,6 +1422,7 @@ def phase_horizon(work_dir, card):
                              "--precision", "bf16_compute", "--seed", str(SEED)])
     launches["train_stability"] = _launches()
     accum = st["grad_accum"]
+    _record_nms("train_stability", STABILITY_STEPS * accum)
     check(launches["train_stability"] == (STABILITY_STEPS * accum,) * 2,
           f"stability: launches {launches['train_stability']} for {STABILITY_STEPS} steps")
     totals = [h["total_loss"] for h in st["history"]]
@@ -1365,6 +1462,8 @@ def phase_horizon(work_dir, card):
                                  sum(s["roi_align_bwd_launches"] for s in segs))
     check(launches["train_horizon"] == (HORIZON["total_steps"] * accum,) * 2,
           f"horizon: launches {launches['train_horizon']} for {HORIZON['total_steps']} steps")
+    _record_nms("train_horizon", HORIZON["total_steps"] * accum,
+                sum(s["nms_launches"] for s in segs))
     log(f"[horizon] long_horizon_run {card}: {HORIZON['total_steps']} steps in "
         f"{len(segs)} fresh-process segments at 384x512, 2000 proposals (pad 2048), decay at "
         f"{HORIZON['decay_at']}, warm-up {HORIZON['warmup']}: LR {hz['lr_pre_decay']:.6g} -> "
@@ -1375,7 +1474,7 @@ def phase_horizon(work_dir, card):
         log(f"[horizon] segment {s['segment']} (to step {s['max_iter']}): wall {s['wall_s']} s, "
             f"peak device memory {s['peak_device_gb']} GB, peak host RSS {s['peak_rss_gb']} GB, "
             f"launches forward {s['roi_align_fwd_launches']}, backward "
-            f"{s['roi_align_bwd_launches']}")
+            f"{s['roi_align_bwd_launches']}, NMS {s['nms_launches']}")
 
     _zero_launches()
     bt = bench_train.main([], log=log)
@@ -1383,6 +1482,7 @@ def phase_horizon(work_dir, card):
     n_steps = sum(1 + (10 if s <= 576 else 6) for s in bt["per_scale"]) + 1 + 6  # + the 4096 run
     check(launches["train_protocol"] == (n_steps * accum,) * 2,
           f"bench_train: launches {launches['train_protocol']} for {n_steps} steps")
+    _record_nms("train_protocol", n_steps * accum)
     for s, r in bt["per_scale"].items():
         log(f"[horizon] bench_train {card}: scale {s} bucket {tuple(r['bucket_hw'])}: "
             f"s/step {r['s_per_step']:.4f}, {r['images_per_sec']:.3f} images/s, MFU "
@@ -1397,6 +1497,10 @@ def phase_horizon(work_dir, card):
     _zero_launches()
     ms = profile_step.main([], log=lambda m: log(f"[horizon] profile_step: {m}"))
     launches["profile_step"] = _launches()
+    # its timed forward-alone calls run as many forwards without mining as
+    # its mining-alone calls mine without one; one more forward makes the
+    # mining-alone calls' input
+    _record_nms("profile_step", launches["profile_step"][0] - 1)
     check(all(np.isfinite(v) and v > 0 for v in ms.values()), f"profile_step: {ms}")
     torch.cuda.empty_cache()
 
@@ -1411,7 +1515,7 @@ def phase_horizon(work_dir, card):
                                 log=lambda m: log(f"[horizon] bench_host_eval: {m}"))
     check(host["kept_dets_mean"] > 0 and host["rles_mean"] > 0, f"bench_host_eval: {host}")
     log(f"[horizon] phase {time.perf_counter() - t_phase:.1f} s; RoIAlign (forward, backward) "
-        f"launches by path {launches}")
+        f"launches by path {launches}; NMS launches by path {NMS_LAUNCHES}")
     return launches
 
 
@@ -1454,8 +1558,7 @@ def phase_train_cli(work_dir, card, profile=False):
              "DATA_DIR", data_dir, "TRAIN.SNAPSHOT_ITERS", str(CLI_SNAPSHOT * accum)]
     out = os.path.join(work_dir, "train_cli_out")
     traced = (CLI_SNAPSHOT + 1, CLI_SNAPSHOT + 2)  # the fifth step: it writes no snapshot
-    roi_align.kernel_launches = 0
-    roi_align_backward.kernel_launches = 0
+    _zero_launches()
     run = train_cli.main(flags + ["--max_iter", str(CLI_STEPS), "--output_dir", out]
                          + (["--profile_dir", os.path.join(work_dir, "profile")] if profile else []),
                          profile_steps=traced)
@@ -1464,6 +1567,7 @@ def phase_train_cli(work_dir, card, profile=False):
           f"the CLI ran {run['step']} steps and logged {len(run['metrics'])}")
     check(fwd == bwd == CLI_STEPS * accum,
           f"{fwd} forward / {bwd} backward kernel launches for {CLI_STEPS} steps x {accum}")
+    _record_nms("train_cli", CLI_STEPS * accum)
     for step, m in run["metrics"]:
         check(all(np.isfinite(v) for v in m.values()), f"CLI step {step}: finite metrics {m}")
     snapshot = os.path.join(out, "ckpt", f"model_step{CLI_SNAPSHOT}.pth")
@@ -1482,7 +1586,7 @@ def phase_train_cli(work_dir, card, profile=False):
         f"steps' loop (each step {[round(s, 4) for s in run['loader_wait_s']]}), loader build "
         f"{np.median(run['loader_build_s']):.4f} s a batch of {accum} on the host (median of "
         f"{len(run['loader_build_s'])}: decode, resize, IoU pickles, pinning); launches forward "
-        f"{fwd}, backward {bwd}; losses {[round(m['total_loss'], 4) for _, m in run['metrics']]}")
+        f"{fwd}, backward {bwd}, NMS {NMS_LAUNCHES['train_cli']}; losses {[round(m['total_loss'], 4) for _, m in run['metrics']]}")
     if run["profile"]:
         p = run["profile"]
         log(f"[train_cli] profile of {p['steps']} step(s): device busy {p['device_busy_ms']:.1f} "
@@ -1596,11 +1700,12 @@ def _ddp_rank(device, ref_cfg, batches, timed_cfg):
     _timed_steps(trainer, batch, 2)
     warm_peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
-    roi_align.kernel_launches = roi_align_backward.kernel_launches = 0
+    _zero_launches()
     timed = _timed_steps(trainer, batch, DDP_TIMED_STEPS)
     result["timed"] = {"s": [t for t, _ in timed], "metrics": timed[-1][1],
                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "warm_peak_gb": warm_peak,
-                       "launches": (roi_align.kernel_launches, roi_align_backward.kernel_launches)}
+                       "launches": (roi_align.kernel_launches, roi_align_backward.kernel_launches),
+                       "nms_launches": greedy_nms_from_iou.kernel_launches}
     # for comparison, not on the main path: one step with the gradients set
     # to None, as a trainer without DDP zeroes them, so that each step
     # allocates them anew and the reducer copies them into its buckets
@@ -1708,6 +1813,8 @@ def phase_ddp(work_dir, card, cli):
         check(t["launches"] == (DDP_TIMED_STEPS * _train_cfg().TPU.GRAD_ACCUM,) * 2,
               f"ddp timed rank {r}: launches {t['launches']}")
         check(all(np.isfinite(v) for v in t["metrics"].values()), f"ddp timed rank {r}: finite")
+    _record_nms("train_ddp_gloo2", 2 * DDP_TIMED_STEPS * _train_cfg().TPU.GRAD_ACCUM,
+                sum(t["nms_launches"] for t in timed))
     log(f"[ddp] {card}: TWO RANKS SHARING ONE CARD (gloo moves the gradients through host "
         f"memory; not multi-GPU speed): resnet50_voc bf16 full width, GRAD_ACCUM 4, scale-480 "
         f"batches of 2000 proposals, s/step of each rank {[[round(s, 4) for s in t['s']] for t in timed]}"
@@ -1727,7 +1834,7 @@ def phase_ddp(work_dir, card, cli):
            "MASTER_PORT": str(_free_port())}
     before = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
-    roi_align.kernel_launches = roi_align_backward.kernel_launches = 0
+    _zero_launches()
     try:
         run = train_cli.main(flags + ["--max_iter", str(DDP_CLI_STEPS), "--output_dir", out])
     finally:
@@ -1739,6 +1846,7 @@ def phase_ddp(work_dir, card, cli):
     fwd, bwd = roi_align.kernel_launches, roi_align_backward.kernel_launches
     check(run["world"] == 1 and run["ddp"], "the torchrun CLI ran one rank under DDP")
     check(fwd == bwd == DDP_CLI_STEPS * 4, f"ddp CLI: {fwd} / {bwd} launches")
+    _record_nms("train_ddp", DDP_CLI_STEPS * 4)
     check([s for s, _ in run["metrics"]] == list(range(DDP_CLI_STEPS)), "ddp CLI steps")
     rel = 0.0
     for (step, got), (_, want) in zip(run["metrics"], cli["metrics"]):
@@ -2204,13 +2312,13 @@ def phase_preprocess(work_dir, card, paths, profile=False):
              "TRAIN.DATASETS", "('chip_smoke_train',)", "TRAIN.PROPOSAL_FILES", f"('{props}',)",
              "TRAIN.REFINE_FILES", f"('{label_assign}',)", "iou_dir", iou["iou"],
              "asy_iou_dir", iou["asy"], "DATA_DIR", os.path.dirname(ann)]
-    roi_align.kernel_launches = 0
-    roi_align_backward.kernel_launches = 0
+    _zero_launches()
     run = train_cli.main(flags)
     fwd, bwd = roi_align.kernel_launches, roi_align_backward.kernel_launches
     check(run["step"] == 2 and fwd == bwd == 2 * accum,
           f"train CLI on the preprocessed files: {run['step']} steps, {fwd} forward / {bwd} "
           f"backward launches")
+    _record_nms("train_cli_pre", 2 * accum)
     for step, m in run["metrics"]:
         check(all(np.isfinite(v) for v in m.values()), f"step {step}: finite metrics {m}")
     log(f"[preprocess] train CLI {card} on the port's own props.pkl, IoU pkls and AGPL "
@@ -2488,9 +2596,10 @@ def phase_eval_paths(card, model, data_dir, props, profile=False):
     body = [p for n, p in trainer.model.named_parameters()
             if n.startswith("Conv_Body.") and p.requires_grad]
     torch.cuda.reset_peak_memory_stats()
-    roi_align.kernel_launches = roi_align_backward.kernel_launches = 0
+    _zero_launches()
     (step_s, metrics), = _timed_steps(trainer, batch, 1)
     launches["train_roipool"] = (roi_align.kernel_launches, roi_align_backward.kernel_launches)
+    _record_nms("train_roipool", tcfg.TPU.GRAD_ACCUM)
     rp_peak = torch.cuda.max_memory_allocated() / 1e9
     check(launches["train_roipool"] == (0, 0), "RoIPoolF train: no RoIAlign kernel")
     check(all(np.isfinite(v) for v in metrics.values()), f"RoIPoolF train: finite losses {metrics}")
@@ -2623,6 +2732,7 @@ def main():
     t_start = time.perf_counter()
 
     phase_build()
+    nms_kernel = phase_nms()
     fwd_kernel = phase_roi_align()
     bwd_kernel = phase_roi_align_bwd()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work_dir:
@@ -2688,6 +2798,17 @@ def main():
                                  **{f"eval_{b}": 0 for b in bodies},
                                  **{f"train_{b}": v[2] for b, v in bodies.items()}},
             **bwd_kernel,
+        },
+        {
+            "name": "nms_from_iou",
+            "route": "cuda",
+            "source": "cim_tpu_torch/csrc/nms_from_iou.cu",
+            "replaces": None,
+            "launches": NMS_LAUNCHES["train"],
+            # counted in each path's run: 3 a mined microbatch, as a graph
+            # replay launches them or op by op
+            "launches_by_path": dict(NMS_LAUNCHES),
+            **nms_kernel,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ design; the port keeps it so that the same seed gives the same arrays:
 - per-image IoU / asymmetric-IoU matrices are joined HERE (bundled into
   the batch), not re-read from pickles inside model.forward like the
   reference (model_builder.py:147-159); they stay float16 on the host and
-  are upcast on the device (engine.train.compute_losses);
+  are upcast on the device (mining.cim.mine_branches);
 - proposal subsampling beyond the cap applies consistently to
   boxes/masks/mat/iou matrices (the reference's _sample_rois
   minibatch.py:92-106 samples only boxes — latent bug since the cap of
@@ -66,7 +66,7 @@ def load_iou_maps(cfg, entry, index):
         with open(os.path.join(cfg.asy_iou_dir, file_name + ".pkl"), "rb") as f:
             asy = np.asarray(pickle.load(f), np.float16)
     # stay f16 end to end: the batch ships f16 and the device upcasts
-    # (engine.train.compute_losses), with no host copy for the identity
+    # (mining.cim.mine_branches), with no host copy for the identity
     # subset
     n = iou.shape[0]
     index = np.asarray(index)

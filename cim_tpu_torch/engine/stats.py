@@ -92,7 +92,7 @@ class TrainingStats:
     def update_iter_stats(self, metrics: dict):
         for k, v in metrics.items():
             # losses + mining health metrics (mined_gt_k / fg_frac_k /
-            # has_gt_k — see engine.train.compute_losses) are all
+            # has_gt_k — see engine.train.losses_from_pseudo_labels) are all
             # median-smoothed and logged
             if k.endswith("loss") or k.startswith(("mined_gt", "fg_frac", "has_gt")):
                 self.smoothed_losses[k].add_value(v)

@@ -9,10 +9,12 @@ PCL loss. Gradient accumulation is the reference's iter_size loop
 (tools/train.py:420-437): one backward per microbatch, gradients summed,
 not divided; the logged losses are the per-microbatch mean.
 
-Mining runs on the device without gradient. Its randomness (anti-noise
-sampling) comes from one torch.Generator on the device, reseeded for each
-(seed, step, microbatch, branch), so a resumed run draws what the
-uninterrupted one would have.
+Mining runs on the device without gradient; on a CUDA device each
+microbatch's mining is one replay of a CUDA graph captured per proposal
+bucket (mining.cim.MiningGraphs, owned by the Trainer). Its randomness
+(anti-noise sampling) comes from one torch.Generator on the device,
+reseeded for each (seed, step, microbatch, branch) and drawn before the
+mining, so a resumed run draws what the uninterrupted one would have.
 
 Data parallelism (cim_tpu's shard_map step, engine/train.py:218-288):
 when a torch.distributed group exists (parallel.launch), the trainer
@@ -38,7 +40,8 @@ import torch.distributed as dist
 
 from cim_tpu_torch import parallel
 from cim_tpu_torch.engine.optimizer import lr_schedule, make_optimizer
-from cim_tpu_torch.mining.cim import MiningParams, PseudoLabels, cim_layer
+from cim_tpu_torch.mining.cim import (MiningGraphs, MiningParams, PseudoLabels, draw_uniforms,
+                                      mine_branches)
 from cim_tpu_torch.mining.losses import cls_iou_loss, mil_bag_loss, pcl_loss
 from cim_tpu_torch.models.builder import build_model
 from cim_tpu_torch.utils.device import resolve_device
@@ -66,30 +69,27 @@ def derive_seed(*parts: int) -> int:
     return int.from_bytes(digest[:8], "little") & (2**63 - 1)
 
 
-def mine_pseudo_labels(cfg, out, batch, generator=None, seed: int = 0) -> List[PseudoLabels]:
+def mine_pseudo_labels(cfg, out, batch, generator=None, seed: int = 0,
+                       graphs: MiningGraphs | None = None) -> List[PseudoLabels]:
     """CIM mining of every refine branch, without gradient: branch 0 mines
     from (predict_cls, predict_det), branch k from branch k-1's refine
-    scores. With anti-noise sampling, branch k draws from ``generator``
-    reseeded with derive_seed(seed, k)."""
-    labels = batch["labels"].float()
-    iou_map = batch["iou_map"].float()
-    asy_iou_map = batch["asy_iou_map"].float()
-    pseudo = []
-    for k in range(cfg.REFINE_TIMES):
-        params_k = mining_params_for_branch(cfg, k)
-        if k == 0:
-            src_cls, src_det = out["predict_cls"], out["predict_det"]
-        else:
-            src_cls, src_det = out["refine_cls"][k - 1], out["refine_iou"][k - 1]
-        if params_k.anti_noise:
+    scores. With anti-noise sampling, branch k's uniforms are drawn from
+    ``generator`` reseeded with derive_seed(seed, k), before the mining.
+    With ``graphs`` (the Trainer's) and tensors on a CUDA device, the
+    branches run as one CUDA graph replay (mining.cim.mine_branches)."""
+    params = [mining_params_for_branch(cfg, k) for k in range(cfg.REFINE_TIMES)]
+    sources = [(out["predict_cls"].detach(), out["predict_det"].detach())] + [
+        (out["refine_cls"][k].detach(), out["refine_iou"][k].detach())
+        for k in range(cfg.REFINE_TIMES - 1)]
+    uniforms = [None] * len(params)
+    for k, (p, (src_cls, src_det)) in enumerate(zip(params, sources)):
+        if p.anti_noise:
             if generator is None:
                 raise ValueError("anti-noise sampling needs a torch.Generator")
             generator.manual_seed(derive_seed(seed, k))
-        with torch.no_grad():
-            pseudo.append(cim_layer(src_cls.detach(), src_det.detach(), labels, iou_map,
-                                    asy_iou_map, batch["valid"], params_k,
-                                    generator=generator))
-    return pseudo
+            uniforms[k] = draw_uniforms(src_cls, src_det, batch["labels"], p, generator)
+    return mine_branches(sources, batch["labels"], batch["iou_map"], batch["asy_iou_map"],
+                         batch["valid"], params, uniforms, graphs=graphs)
 
 
 def losses_from_pseudo_labels(cfg, out, batch, pseudo) -> Dict[str, torch.Tensor]:
@@ -128,20 +128,13 @@ def losses_from_pseudo_labels(cfg, out, batch, pseudo) -> Dict[str, torch.Tensor
     return losses
 
 
-def compute_losses(cfg, out, batch, generator=None, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Mining, then the losses, of one image (cim_tpu compute_losses plus
-    the total). batch: rois / masks / valid / labels / mat / iou_map /
-    asy_iou_map on the device; the IoU maps may be float16 and are upcast
-    here."""
-    with span("cim.mining"):
-        pseudo = mine_pseudo_labels(cfg, out, batch, generator, seed)
-    return losses_from_pseudo_labels(cfg, out, batch, pseudo)
-
-
-def make_loss_fn(cfg, model):
-    """loss_fn(batch, generator, seed) -> (total, losses).
-    batch["image_hw"], when present, is the host (h, w) of the image
-    inside its zero-padded bucket."""
+def make_loss_fn(cfg, model, graphs: MiningGraphs | None = None):
+    """loss_fn(batch, generator, seed) -> (total, losses): the forward,
+    mining through ``graphs``, then the losses of one image (cim_tpu
+    compute_losses plus the total). batch: rois / masks / valid / labels /
+    mat / iou_map / asy_iou_map on the device (the IoU maps may be float16
+    and are upcast in the mining); batch["image_hw"], when present, is the
+    host (h, w) of the image inside its zero-padded bucket."""
 
     def loss_fn(batch, generator=None, seed: int = 0):
         im_hw = batch.get("image_hw")
@@ -149,7 +142,9 @@ def make_loss_fn(cfg, model):
             out = model(batch["image"], batch["rois"], batch["masks"], batch["valid"],
                         im_hw=None if im_hw is None else (int(im_hw[0]), int(im_hw[1])))
         with span("cim.losses"):
-            losses = compute_losses(cfg, out, batch, generator, seed)
+            with span("cim.mining"):
+                pseudo = mine_pseudo_labels(cfg, out, batch, generator, seed, graphs)
+            losses = losses_from_pseudo_labels(cfg, out, batch, pseudo)
         return losses["total_loss"], losses
 
     return loss_fn
@@ -211,7 +206,9 @@ class Trainer:
                 self.ddp = torch.nn.parallel.DistributedDataParallel(
                     self.model, device_ids=[self.device] if self.device.type == "cuda" else None,
                     broadcast_buffers=False, gradient_as_bucket_view=True)
-        self.loss_fn = make_loss_fn(cfg, self.ddp or self.model)
+        # on a CUDA device each microbatch mines by one graph replay
+        self.mining_graphs = MiningGraphs()
+        self.loss_fn = make_loss_fn(cfg, self.ddp or self.model, self.mining_graphs)
         self.generator = torch.Generator(device=self.device)
         self.step_count = 0
 
@@ -247,8 +244,9 @@ class Trainer:
         """The step of :meth:`step`, without waiting for the card at its
         end: every loss metric as a 0-d tensor on the device, and "lr" as a
         float. Reading a metric waits for the step, so a training loop
-        reads step i's after it has dispatched step i + 1. Mining's greedy
-        NMS still waits for the card once a round (a cim.sync span each)."""
+        reads step i's after it has dispatched step i + 1. On a CUDA device
+        the step never waits for the card: mining is a graph replay (a
+        capture, the first time a key is seen, synchronizes once)."""
         accum = batch["labels"].shape[0]
         self.optimizer.zero_grad(set_to_none=self.ddp is None)
         sums = None

@@ -12,8 +12,16 @@ tensor ops on the proposals' device, the same algorithm as cim_tpu:
 - the "higher-scoring class wins" update (heads.py:397-402) as an argmax
   over classes, whose first-max rule picks the lowest class index;
 - anti-noise resampling by CDF inversion of uniform draws from a
-  torch.Generator, or of uniforms the caller passes in (the tests feed it
-  cim_tpu's jax.random draws).
+  torch.Generator, or of uniforms the caller passes in (draw_uniforms draws
+  them ahead; the tests feed it cim_tpu's jax.random draws).
+
+Which path runs where: the seed NMS is ops/nms.greedy_nms_from_iou, a
+hand-written kernel on CUDA tensors and the plain round loop on CPU
+tensors; nothing else in mining reads a device value on the host, so on
+the card a mining call never waits for it. mine_branches runs every refine
+branch of one image; given a MiningGraphs and CUDA tensors it replays them
+as one CUDA graph captured for the inputs' key, else it runs them op by
+op.
 
 Tie rules follow cim_tpu: stable sorts (jnp.argsort is stable), first-max
 argmax, and scatter-max with duplicate indices as ``scatter_reduce``
@@ -24,7 +32,8 @@ callers pass detached scores.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+import struct
+from typing import List, NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -75,10 +84,12 @@ class PseudoLabels(NamedTuple):
 
 def seed_count(p_seed: float, n_valid: torch.Tensor) -> torch.Tensor:
     """keep_count = ceil(p_seed * N) in float32, N the valid proposal count
-    (reference heads.py:332)."""
-    with span("cim.sync"):  # a copy from pageable memory waits for the card's queue
-        p = torch.tensor(p_seed, dtype=torch.float32, device=n_valid.device)
-    return torch.ceil(p * n_valid.float()).to(torch.int64)
+    (reference heads.py:332). p_seed is rounded to float32 on the host and
+    enters the product as a scalar argument: nothing is copied to the
+    device. The product of two float32 values is the same rounded in
+    float32 or in double, so the kernel's arithmetic type cannot move it."""
+    p32 = struct.unpack("f", struct.pack("f", p_seed))[0]
+    return torch.ceil(n_valid.float() * p32).to(torch.int64)
 
 
 def max_seeds(p_seed: float, n_max: int) -> int:
@@ -261,6 +272,12 @@ def anti_noise_resample(mined: MinedGT, labels, generator=None,
     return MinedGT(gt_labels, gt_weights, gt_mask, mined.asy_iou_flag)
 
 
+def background_onehot(c1: int, dtype, device) -> torch.Tensor:
+    """(C+1,) one-hot of the background class, made on the device: no
+    value is copied from the host."""
+    return (torch.arange(c1, device=device) == 0).to(dtype)
+
+
 def assign_pseudo_labels(mined: MinedGT, iou_map, valid, params: MiningParams) -> PseudoLabels:
     """IoU-based pseudo-label assignment (reference heads.py:476-502)."""
     c1 = mined.gt_labels.shape[1]
@@ -280,9 +297,7 @@ def assign_pseudo_labels(mined: MinedGT, iou_map, valid, params: MiningParams) -
     loss_weights = torch.where(ignore, torch.zeros_like(loss_weights), loss_weights)
 
     # background assignment, and big proposals forced to background
-    bg_onehot = torch.zeros((c1,), dtype=dtype, device=iou_map.device)
-    with span("cim.sync"):  # the value is copied from the host, which waits for the card
-        bg_onehot[0] = 1.0
+    bg_onehot = background_onehot(c1, dtype, iou_map.device)
     bg = ((max_v < params.cls_thr) & ~ignore) | ~mined.asy_iou_flag
     pseudo_labels = torch.where(bg[:, None], bg_onehot[None, :], pseudo_labels)
 
@@ -329,3 +344,135 @@ def cim_layer(predict_cls, predict_det, labels, iou_map, asy_iou_map, valid,
             max_draws=max_seeds(params.p_seed, predict_cls.shape[0]), uniforms=uniforms,
         )
     return assign_pseudo_labels(mined, iou_map, valid, params)
+
+
+def draw_uniforms(predict_cls, predict_det, labels, params: MiningParams, generator,
+                  using_cim: bool = True) -> torch.Tensor:
+    """The uniforms that cim_layer(..., generator=generator) draws for
+    anti-noise sampling, drawn ahead of it with the same shape, dtype and
+    generator: cim_layer(..., uniforms=draw_uniforms(...)) mines the same."""
+    n, c = predict_cls.shape[0], labels.shape[-1]
+    dtype = predict_cls.dtype
+    if not using_cim and predict_det is not None:
+        dtype = torch.result_type(predict_cls, predict_det)  # MIST mines their product
+    k_draw = min(max_seeds(params.p_seed, n), n)
+    return torch.rand((c, k_draw), generator=generator, device=predict_cls.device, dtype=dtype)
+
+
+class MiningGraphs:
+    """CUDA graphs of mine_branches, one a key, in one shared memory pool.
+
+    The key is what mine_branches observes in its inputs: each tensor's
+    shape, dtype and device (the proposal bucket N, the class count), the
+    branches' MiningParams (thresholds, class budget) and using_cim. The
+    first call with a key runs op by op (the warm-up, whose result it
+    returns), then captures the graph. Each later call copies its inputs
+    into the graph's static buffers, replays it and returns clones of its
+    outputs, so that no replay overwrites a tensor a caller kept (autograd
+    saves the pseudo labels for the losses' backward). The graphs share one
+    pool: they run on one stream, one at a time, and a replay's outputs are
+    cloned before the next replay. A capture synchronizes the device once.
+
+    ``captures``, ``replays`` and ``eager_runs`` count the graphs captured,
+    the calls that replayed one and those that ran op by op (the warm-ups,
+    and every call on CPU tensors through mine_branches). A capture
+    launches no kernel, so greedy_nms_from_iou.kernel_launches leaves it
+    out and counts each replay's NMS launches instead.
+    """
+
+    def __init__(self):
+        self._graphs = {}
+        self._pool = None
+        self.captures = self.replays = self.eager_runs = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def device_bytes(self):
+        """(device bytes the shared pool holds, bytes of the graphs' static
+        inputs): what the graphs keep for their life, apart from what each
+        step allocates and frees. The pool's size is None where the
+        allocator's snapshot does not tell segments' pools apart."""
+        static = sum(t.numel() * t.element_size() for e in self._graphs.values() for t in e[0])
+        if self._pool is None:
+            return 0, static
+        segments = torch.cuda.memory_snapshot()
+        if segments and "segment_pool_id" not in segments[0]:
+            return None, static
+        pool = sum(s["total_size"] for s in segments
+                   if tuple(s["segment_pool_id"]) == tuple(self._pool))
+        return pool, static
+
+    def run(self, key, fn, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        entry = self._graphs.get(key)
+        if entry is None:
+            outs = list(fn(*inputs))
+            self.eager_runs += 1
+            self._graphs[key] = self._capture(fn, inputs)
+            self.captures += 1
+            return outs
+        static_in, static_out, graph, nms_launches = entry
+        for dst, src in zip(static_in, inputs):
+            dst.copy_(src)
+        graph.replay()
+        greedy_nms_from_iou.kernel_launches += nms_launches
+        self.replays += 1
+        return [t.clone() for t in static_out]
+
+    def _capture(self, fn, inputs):
+        static_in = [t.clone() for t in inputs]  # outside the pool: live for the graph's life
+        graph = torch.cuda.CUDAGraph()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        launches = greedy_nms_from_iou.kernel_launches
+        # capture_error_mode: the loader's threads may pin memory meanwhile
+        with span("cim.sync"), torch.cuda.device(static_in[0].device), torch.cuda.graph(
+                graph, pool=self._pool, capture_error_mode="thread_local"):
+            static_out = list(fn(*static_in))
+        # the wrapper counted the kernels it recorded; they launch at replay
+        nms_launches = greedy_nms_from_iou.kernel_launches - launches
+        greedy_nms_from_iou.kernel_launches = launches
+        return static_in, static_out, graph, nms_launches
+
+
+def mining_graph_key(inputs: Sequence[torch.Tensor], params: Sequence[MiningParams],
+                     using_cim: bool) -> tuple:
+    """MiningGraphs' key of mine_branches' inputs: each tensor's shape,
+    dtype and device, the branches' MiningParams and using_cim."""
+    return (tuple((tuple(t.shape), t.dtype, t.device) for t in inputs), tuple(params),
+            bool(using_cim))
+
+
+def mine_branches(sources, labels, iou_map, asy_iou_map, valid, params: Sequence[MiningParams],
+                  uniforms, using_cim: bool = True,
+                  graphs: MiningGraphs | None = None) -> List[PseudoLabels]:
+    """cim_layer of every refine branch of one image: branch k mines
+    sources[k] = (predict_cls, predict_det) with params[k] and, with
+    anti-noise sampling, uniforms[k] (draw_uniforms; None without). labels,
+    the IoU maps (float16 or float32, upcast here) and valid are the
+    batch's. With ``graphs`` and CUDA tensors every branch runs in one
+    replay of the graph for these inputs' key; else op by op."""
+    nb = len(params)
+    drawn = [u for p, u in zip(params, uniforms) if p.anti_noise]
+    if any(u is None for u in drawn):
+        raise ValueError("anti-noise sampling needs each branch's uniforms")
+    inputs = [t for pair in sources for t in pair] + [labels, iou_map, asy_iou_map, valid] + drawn
+
+    def mine(*flat):
+        lab, iou, asy, val = flat[2 * nb:2 * nb + 4]
+        lab, iou, asy = lab.float(), iou.float(), asy.float()
+        us = iter(flat[2 * nb + 4:])
+        out = []
+        for k, p in enumerate(params):
+            out += cim_layer(flat[2 * k], flat[2 * k + 1], lab, iou, asy, val, p,
+                             using_cim=using_cim, uniforms=next(us) if p.anti_noise else None)
+        return out
+
+    with torch.no_grad():
+        if graphs is not None and valid.device.type == "cuda":
+            flat = graphs.run(mining_graph_key(inputs, params, using_cim), mine, inputs)
+        else:
+            flat = mine(*inputs)
+            if graphs is not None:
+                graphs.eager_runs += 1
+    return [PseudoLabels(*flat[5 * k:5 * k + 5]) for k in range(nb)]

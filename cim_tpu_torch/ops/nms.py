@@ -1,8 +1,11 @@
 """NMS (port of cim_tpu/ops/nms.py: greedy_nms_from_iou, nms_np, soft_nms_np).
 
 - :func:`greedy_nms_from_iou`: exact greedy NMS over precomputed IoU
-  matrices on the device, batched over a leading axis (CIM mining's
-  per-class seed NMS, reference lib/modeling/heads.py:237-258).
+  matrices on the device, batched over leading axes (CIM mining's
+  per-class seed NMS, reference lib/modeling/heads.py:237-258). CUDA
+  tensors go to the hand-written kernel ``csrc/nms_from_iou.cu``, which
+  never waits for the host; CPU tensors to :func:`greedy_nms_rounds`, the
+  plain version, which the tests hold against cim_tpu.
 - :func:`nms_np` / :func:`soft_nms_np`: host NMS for detections, numpy as
   in the reference. Greedy NMS calls the C++ kernel of cim_tpu_torch.native
   (built with g++ at first use), which implements the reference cython_nms
@@ -10,13 +13,20 @@
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
 from cim_tpu_torch import native
+from cim_tpu_torch.ops import _build
 from cim_tpu_torch.utils.trace import span
 
 NEG_INF = -1e30
+
+# candidates a row the kernel holds (csrc/nms_from_iou.cu, kMaxK)
+MAX_CANDIDATES = 1024
 
 
 def greedy_nms_from_iou(iou, scores, thresh, valid=None):
@@ -24,9 +34,25 @@ def greedy_nms_from_iou(iou, scores, thresh, valid=None):
 
     iou: (..., N, N); scores: (..., N); valid: optional (..., N) bool
     (invalid entries are never kept and never suppress). Candidates go in
-    descending score order, ties by index (stable sort); a candidate is
-    kept iff no kept higher-ranked candidate overlaps it with
-    ``iou >= thresh``. Returns the (..., N) bool keep mask.
+    descending score order, ties by index (stable sort); a candidate i is
+    kept iff no kept higher-ranked candidate j overlaps it with
+    ``iou[..., i, j] >= thresh``. Returns the (..., N) bool keep mask.
+
+    On a CUDA device the kernel decides each batch row in one block and
+    the host never waits (launches counted on
+    ``greedy_nms_from_iou.kernel_launches``); it takes float32 IoU and at
+    most MAX_CANDIDATES candidates. CPU tensors take greedy_nms_rounds.
+    """
+    if scores.device.type == "cuda":
+        return _greedy_nms_cuda(iou, scores, thresh, valid)
+    return greedy_nms_rounds(iou, scores, thresh, valid)
+
+
+greedy_nms_from_iou.kernel_launches = 0
+
+
+def greedy_nms_rounds(iou, scores, thresh, valid=None):
+    """The plain version of :func:`greedy_nms_from_iou`, on any device.
 
     As in cim_tpu, the greedy outcome is resolved a "generation" of
     candidates per round with (N, N) reductions; the loop ends when no
@@ -55,6 +81,50 @@ def greedy_nms_from_iou(iou, scores, thresh, valid=None):
         blocked = (m & ~suppressed[..., None, :]).any(-1)
         kept = kept | (valid & ~suppressed & ~blocked)
         suppressed = suppressed | ((m & kept[..., None, :]).any(-1) & ~kept)
+
+
+@functools.cache
+def _kernel():
+    """The launcher of csrc/nms_from_iou.cu, built on first use."""
+    fn = _build.load("nms_from_iou").nms_from_iou
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_void_p]
+    return fn
+
+
+def _greedy_nms_cuda(iou, scores, thresh, valid):
+    n = scores.shape[-1]
+    lead = tuple(scores.shape[:-1])
+    if tuple(iou.shape) != lead + (n, n):
+        raise ValueError(f"iou must be {lead + (n, n)} for scores {tuple(scores.shape)}, "
+                         f"got {tuple(iou.shape)}")
+    if iou.dtype != torch.float32:
+        raise TypeError(f"the NMS kernel takes float32 IoU, got {iou.dtype}")
+    if scores.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"the NMS kernel takes float32, bfloat16 or float16 scores, "
+                        f"got {scores.dtype}")
+    if n > MAX_CANDIDATES:
+        raise ValueError(f"the NMS kernel takes at most {MAX_CANDIDATES} candidates, got {n}")
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
+    if tuple(valid.shape) != tuple(scores.shape) or valid.dtype != torch.bool:
+        raise ValueError(f"valid must be a bool tensor of shape {tuple(scores.shape)}")
+    if iou.device != scores.device or valid.device != scores.device:
+        raise ValueError("iou, scores and valid must be on one device")
+    # a half score widens to float32 exactly: the same order and ties
+    iou, scores, valid = iou.contiguous(), scores.float().contiguous(), valid.contiguous()
+    keep = torch.empty(scores.shape, dtype=torch.bool, device=scores.device)
+    batch = keep.numel() // n if n else 0
+    if batch == 0:
+        return keep
+    err = _kernel()(iou.data_ptr(), scores.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                    batch, n, float(thresh),
+                    torch.cuda.current_stream(scores.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nms_from_iou kernel launch failed with CUDA error {err}")
+    greedy_nms_from_iou.kernel_launches += 1
+    return keep
 
 
 def nms_np(dets: np.ndarray, thresh: float) -> list:

@@ -181,6 +181,7 @@ def main(argv=None):
             "peak_rss_gb": round(run_end["ru_maxrss_kb"] * 1024 / 1e9, 3),
             "roi_align_fwd_launches": run_end["roi_align_fwd_launches"],
             "roi_align_bwd_launches": run_end["roi_align_bwd_launches"],
+            "nms_launches": run_end["nms_launches"],
         })
         print(json.dumps(seg_summaries[-1]), flush=True)
         # a partial artifact after every segment: a run bounded by the clock

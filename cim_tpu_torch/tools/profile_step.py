@@ -11,8 +11,10 @@ CIM mining branches alone (on that forward's outputs), forward + mining +
 losses, forward + backward, and the full accumulated Trainer step a
 image. Each runs once to warm up, then --iters times between two
 synchronizations of the card. The parts are the Trainer's own
-(Trainer.model, Trainer.loss_fn, engine.train.mine_pseudo_labels), so the
-breakdown explains bench_train's numbers at the same shapes.
+(Trainer.model, Trainer.loss_fn, engine.train.mine_pseudo_labels through
+Trainer.mining_graphs: on a card the warm-up captures the mining graph and
+each timed call replays it), so the breakdown explains bench_train's
+numbers at the same shapes.
 """
 from __future__ import annotations
 
@@ -89,7 +91,8 @@ def main(argv=None, log=print):
     with torch.no_grad():
         timeit("forward (model only)", forward)
         out0 = forward()
-        timeit("mining x3 (cim_layer)", lambda: mine_pseudo_labels(cfg, out0, mb, gen, seed=0))
+        timeit("mining x3 (cim_layer)", lambda: mine_pseudo_labels(
+            cfg, out0, mb, gen, seed=0, graphs=trainer.mining_graphs))
         timeit("loss_fn (fwd+mine+losses)", lambda: trainer.loss_fn(mb, gen, 0))
     del out0
 

@@ -51,6 +51,7 @@ from cim_tpu_torch.data import catalog
 from cim_tpu_torch.engine.checkpoint import checkpoint_location, load_ckpt, save_ckpt
 from cim_tpu_torch.engine.stats import TrainingStats, setup_logging
 from cim_tpu_torch.engine.train import Trainer, metrics_to_floats
+from cim_tpu_torch.ops.nms import greedy_nms_from_iou
 from cim_tpu_torch.ops.roi_align import roi_align, roi_align_backward
 from cim_tpu_torch.utils.device import resolve_device
 from cim_tpu_torch.utils.trace import Profile
@@ -282,7 +283,8 @@ def main(argv=None, profile_steps=PROFILE_STEPS):
 def _train(device, args, cfg, output_dir, profile_steps, datasets):
     """One rank's run (the whole run at world size 1)."""
     setup_logging()  # a spawned rank starts from a fresh interpreter
-    launches0 = (roi_align.kernel_launches, roi_align_backward.kernel_launches)
+    launches0 = (roi_align.kernel_launches, roi_align_backward.kernel_launches,
+                 greedy_nms_from_iou.kernel_launches)
     catalog.DATASETS.update(datasets)
     rank, world = parallel.rank(), parallel.world_size()
     if rank != 0:
@@ -409,6 +411,7 @@ def _train(device, args, cfg, output_dir, profile_steps, datasets):
         "ru_maxrss_kb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
         "roi_align_fwd_launches": roi_align.kernel_launches - launches0[0],
         "roi_align_bwd_launches": roi_align_backward.kernel_launches - launches0[1],
+        "nms_launches": greedy_nms_from_iou.kernel_launches - launches0[2],
     }
     logger.info(json.dumps({"run_end": summary["run_end"]}))
     return summary

@@ -25,6 +25,12 @@ The spans (every name starts with ``cim.``):
   stack;
 - ``cim.eval.post``: the NMS and limit of one image on ``_AsyncPost``'s
   worker thread.
+
+Beside the spans, counts of how often a mechanism engaged are attributes
+of what engages, read as differences around a run: each hand-written
+kernel's ``kernel_launches`` (ops/roi_align.py, ops/nms.py), and a
+MiningGraphs' ``captures``, ``replays`` and ``eager_runs``
+(mining/cim.py; the Trainer's is ``Trainer.mining_graphs``).
 """
 from __future__ import annotations
 

@@ -147,6 +147,7 @@ def test_each_segment_reports_its_run_end(run):
         assert 0.05 < s["peak_rss_gb"] < 50
         # on the CPU the wrappers run the plain versions, not the kernels
         assert s["roi_align_fwd_launches"] == s["roi_align_bwd_launches"] == 0
+        assert s["nms_launches"] == 0
 
 
 def test_a_short_segment_fails_the_run(tmp_path, monkeypatch):
@@ -173,7 +174,8 @@ def _fake_segment(fail_at=None):
         first = max_iter - args.segment_steps
         stats = [{"iter": it, "lr": 1e-3, "loss": 3.0 - 0.01 * it} for it in (first, max_iter - 1)]
         end = {"step": max_iter, "device": "cpu", "max_memory_allocated": None,
-               "ru_maxrss_kb": 1024, "roi_align_fwd_launches": 0, "roi_align_bwd_launches": 0}
+               "ru_maxrss_kb": 1024, "roi_align_fwd_launches": 0, "roi_align_bwd_launches": 0,
+               "nms_launches": 0}
         return 0, stats, end, 0.1, ""
     return run
 

@@ -85,9 +85,11 @@ def test_greedy_nms_from_iou_matches_jax(quantize):
         scores = np.round(scores * 4) / 4
     valid = rng.rand(c, n) > 0.3
     want = jax.vmap(lambda i, s, v: jax_nms(i, s, 0.5, valid=v))(*_j(iou, scores, valid))
+    launches = greedy_nms_from_iou.kernel_launches
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         got = greedy_nms_from_iou(*_t(iou, scores), 0.5, valid=torch.from_numpy(valid))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert greedy_nms_from_iou.kernel_launches == launches  # CPU tensors: the plain loop
     # a host sync (cim.sync span) a round, at least one, and one for the
     # test that ends the loop; a round decides at least one candidate
     syncs = sum(e.name == "cim.sync" for e in prof.events())
@@ -214,3 +216,98 @@ def test_cim_layer_matches_jax(using_cim):
     np.testing.assert_allclose(got.loss_weights.numpy(), np.asarray(want.loss_weights),
                                **FLOAT_TOL)
     assert int(got.gt_count) == int(want.gt_count)
+
+
+@pytest.mark.parametrize("p_seed", [0.1, 0.05])
+def test_seed_count_is_the_float32_ceil(p_seed):
+    """Every valid count a bucket can hold: ceil of the float32 product,
+    as the count computed from a float32 copy of p_seed on the device was."""
+    n = torch.arange(4097)
+    got = tcim.seed_count(p_seed, n)
+    want = np.ceil(np.float32(p_seed) * np.arange(4097, dtype=np.float32)).astype(np.int64)
+    np.testing.assert_array_equal(got.numpy(), want)
+    old = torch.ceil(torch.tensor(p_seed, dtype=torch.float32) * n.float()).to(torch.int64)
+    assert torch.equal(got, old)
+    assert int(tcim.seed_count(p_seed, torch.tensor(2560))) == want[2560]
+
+
+@pytest.mark.parametrize("c1,dtype", [(21, torch.float32), (81, torch.bfloat16)])
+def test_background_onehot_is_the_host_written_one(c1, dtype):
+    old = torch.zeros((c1,), dtype=dtype)
+    old[0] = 1.0
+    got = tcim.background_onehot(c1, dtype, torch.device("cpu"))
+    assert got.dtype == dtype and torch.equal(got, old)
+
+
+@pytest.mark.parametrize("using_cim", [True, False])
+def test_drawn_uniforms_mine_what_the_generator_draws(using_cim):
+    rng = np.random.RandomState(12)
+    cls, det, labels, iou, asy, valid = _t(*_instance(rng, n_labels=3))
+    params = tcim.MiningParams(cls_thr=0.35, iou_thr=0.6, anti_noise=True)
+    gen = torch.Generator().manual_seed(21)
+    want = tcim.cim_layer(cls, det, labels, iou, asy, valid, params, gen, using_cim=using_cim)
+    gen.manual_seed(21)
+    u = tcim.draw_uniforms(cls, det, labels, params, gen, using_cim=using_cim)
+    got = tcim.cim_layer(cls, det, labels, iou, asy, valid, params, using_cim=using_cim,
+                         uniforms=u)
+    assert int(want.gt_count) > 0
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _branches(rng, n_branches=3, budget=0):
+    """Three branches' sources (head outputs with a background column),
+    their ramped params and drawn uniforms, float16 maps as a batch holds
+    them."""
+    cls, det, labels, iou, asy, valid = _instance(rng, n_labels=3)
+    sources = []
+    for _ in range(n_branches):
+        bg = rng.uniform(0, 0.1, (cls.shape[0], 1)).astype(np.float32)
+        noise = rng.uniform(0.9, 1.1, cls.shape).astype(np.float32)
+        sources.append((torch.from_numpy(np.concatenate([bg, cls * noise], 1)),
+                        torch.from_numpy(np.concatenate([bg, det * noise], 1))))
+    params = [tcim.MiningParams(cls_thr=0.25 + 0.1 * k, iou_thr=0.5 + 0.1 * k,
+                                anti_noise=k != 1, class_budget=budget)
+              for k in range(n_branches)]
+    gen = torch.Generator().manual_seed(int(rng.randint(1 << 30)))
+    uniforms = [tcim.draw_uniforms(c, d, torch.from_numpy(labels), p, gen)
+                if p.anti_noise else None for (c, d), p in zip(sources, params)]
+    maps = [torch.from_numpy(m).half() for m in (iou, asy)]
+    return sources, torch.from_numpy(labels), maps, torch.from_numpy(valid), params, uniforms
+
+
+@pytest.mark.parametrize("budget", [0, 4])
+def test_mine_branches_on_the_cpu_is_each_branch_cim_layer(budget):
+    """On CPU tensors mine_branches runs op by op, with graphs or without,
+    and counts one eager run a call."""
+    sources, labels, (iou, asy), valid, params, uniforms = _branches(
+        np.random.RandomState(13), budget=budget)
+    graphs = tcim.MiningGraphs()
+    got = tcim.mine_branches(sources, labels, iou, asy, valid, params, uniforms, graphs=graphs)
+    assert (graphs.captures, graphs.replays, graphs.eager_runs) == (0, 0, 1)
+    assert len(graphs) == 0 and graphs.device_bytes() == (0, 0)
+    for (c, d), p, u, pl in zip(sources, params, uniforms, got):
+        want = tcim.cim_layer(c, d, labels, iou.float(), asy.float(), valid, p, uniforms=u)
+        for a, b in zip(pl, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert bool(got[0].has_gt)
+    with pytest.raises(ValueError, match="uniforms"):
+        tcim.mine_branches(sources, labels, iou, asy, valid, params, [None] * 3)
+
+
+def test_mining_graph_key_follows_bucket_classes_and_params():
+    params = [tcim.MiningParams(cls_thr=0.25 + 0.1 * k) for k in range(3)]
+
+    def key(n=2048, c=20, ps=params, using_cim=True, dtype=torch.float32):
+        inputs = [torch.zeros(n, c + 1, dtype=dtype) for _ in range(6)] + [
+            torch.zeros(c), torch.zeros(n, n, dtype=torch.float16),
+            torch.zeros(n, n, dtype=torch.float16), torch.zeros(n, dtype=torch.bool)]
+        return tcim.mining_graph_key(inputs, ps, using_cim)
+
+    base = key()
+    assert key() == base and hash(key()) == hash(base)  # fresh tensors, the same key
+    budget = [p._replace(class_budget=4) for p in params]
+    thresholds = [p._replace(cls_thr=p.cls_thr + 0.05) for p in params]
+    others = [key(n=2560), key(c=80), key(using_cim=False), key(ps=budget),
+              key(ps=thresholds), key(dtype=torch.bfloat16)]
+    assert len({base, *others}) == 1 + len(others)

@@ -120,10 +120,15 @@ def test_a_train_step_records_its_spans():
         assert got[name] == accum, (name, got)
     assert got["cim.optimizer"] == 1
     # the metrics' read, each numpy array's copy (image_hw stays on the
-    # host), and in each branch's mining the seed count's copy and the NMS
-    # loop's tests (at least one round and the test that ends it)
+    # host), and in each branch's mining the CPU NMS loop's tests (at least
+    # one round and the test that ends it): the seed count and the
+    # background one-hot copy nothing from the host
     arrays = len(batch) - 1
-    assert got["cim.sync"] >= 1 + accum * (arrays + branches * 3), got
+    assert got["cim.sync"] >= 1 + accum * (arrays + branches * 2), got
+    # on the CPU each microbatch mines op by op: no graph
+    graphs = trainer.mining_graphs
+    assert (graphs.captures, graphs.replays, graphs.eager_runs) == (0, 0, accum)
+    assert len(graphs) == 0
 
 
 def test_a_batched_eval_window_records_its_spans():
