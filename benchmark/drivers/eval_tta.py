@@ -26,7 +26,8 @@ from torch.profiler import record_function
 from benchmark import flops, generate, weights
 from benchmark.program import check_frozen, load_cfg
 from benchmark.reference import tta
-from benchmark.reference.model import BODIES, CIMModel, feature_hw, no_tf32
+from benchmark.reference.bodies import conv_body
+from benchmark.reference.model import CIMModel, no_tf32
 from benchmark.trace import Profiler
 
 
@@ -77,7 +78,8 @@ class Driver:
         """Each image's model FLOPs over its passes and its RoIAlign
         forwards' least seconds, from the benchmark's own counts."""
         m = self.spec["model"]
-        body = BODIES[m["body"]]
+        mod = conv_body(m["body"])
+        body = mod.Body
         self.work = []
         for items in self.windows:
             row = []
@@ -89,15 +91,17 @@ class Driver:
                     rois = boxes * np.float32(scale)
                     fl += flops.image_flops(m["body"], ohw, len(boxes), rois, m, train=False)
                     taps = flops.roi_taps(rois, 1.0 / body.stride, m["cap"])
-                    least += flops.roi_fwd_least([feature_hw(m["body"], *ohw)], body.dim_out,
+                    least += flops.roi_fwd_least([mod.feature_hw(*ohw)], body.dim_out,
                                                  len(boxes), taps)
                 row.append((fl, least))
             self.work.append(row)
 
     def _run(self, n_windows: int, seconds: float = None, trace: bool = False):
-        """test_net's loop over pool windows: ``n_windows`` of them, or as
-        many as start within ``seconds``. Returns the run's record, with
-        each pool image's last scores and detections."""
+        """test_net's loop over pool windows: ``n_windows`` of them, or, with
+        ``seconds``, windows until ``seconds`` have passed and they make whole
+        cycles of the pool, so that every seed's window does the same work.
+        Returns the run's record, with each pool image's last scores and
+        detections."""
         from cim_tpu_torch.engine.test_engine import _AsyncPost
 
         post = _AsyncPost(self.cfg, False)
@@ -106,7 +110,8 @@ class Driver:
         w, prof, tr, tp = 0, None, None, 0.0
         traced, traced_s, flops_done = [], 0.0, 0.0
         t0 = time.perf_counter()
-        while (w < n_windows) if seconds is None else (time.perf_counter() - t0 < seconds):
+        while (w < n_windows if seconds is None else
+               time.perf_counter() - t0 < seconds or w % n_win):
             k = w % n_win
             if trace and not traced and time.perf_counter() - t0 >= 0.4 * seconds:
                 tp = time.perf_counter()
@@ -128,12 +133,14 @@ class Driver:
             w += 1
         answers = post.results()
         window_s = max(finished, default=time.perf_counter()) - t0
+        # (seconds into the window, images out of the NMS by then)
+        marks = [(t - t0, i + 1) for i, t in enumerate(sorted(finished))]
         n_images = sum(len(self.windows[i % n_win]) for i in range(w))
         return {
             "attempted": n_images, "failed": n_images - len(answers),
             "images_done": len(answers), "window_s": window_s, "windows": w,
             "flops": flops_done, "seconds": window_s - traced_s, "trace": tr,
-            "traced": traced,
+            "traced": traced, "marks": marks,
             "last": {key: (s, answers.get((wi, key[1]))) for key, (wi, s) in last.items()},
         }
 
@@ -163,7 +170,7 @@ class Driver:
                 "steps": sum(len(self.windows[k]) for k in traced),
                 "roi_fwd_least_s": sum(le for k in traced for _, le in self.work[k]),
             },
-            "steps": run["images_done"], "window_s": run["window_s"],
+            "steps": run["images_done"], "window_s": run["window_s"], "marks": run["marks"],
         }
 
     def free(self):

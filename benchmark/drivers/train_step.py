@@ -28,7 +28,8 @@ from torch.profiler import record_function
 
 from benchmark import flops, generate, weights
 from benchmark.program import check_frozen, load_cfg
-from benchmark.reference.model import BODIES, CIMModel, feature_hw, no_tf32
+from benchmark.reference.bodies import conv_body
+from benchmark.reference.model import CIMModel, no_tf32
 from benchmark.reference.train import train_steps
 from benchmark.trace import Profiler
 
@@ -96,7 +97,8 @@ class Driver:
         """Each pool step's model FLOPs and its RoIAlign launches' least
         seconds, from the benchmark's own counts at the true sizes."""
         m = self.spec["model"]
-        body = BODIES[m["body"]]
+        mod = conv_body(m["body"])
+        body = mod.Body
         dims = dict(m)
         for st in self.pool:
             b = st["batch"]
@@ -107,7 +109,7 @@ class Driver:
                 rois = b["rois"][j, :n].numpy()
                 fl += flops.image_flops(m["body"], hw, n, rois, dims, train=True)
                 taps = flops.roi_taps(rois, 1.0 / body.stride, m["cap"])
-                fhw = feature_hw(m["body"], *hw)
+                fhw = mod.feature_hw(*hw)
                 fwd += flops.roi_fwd_least([fhw], body.dim_out, n, taps)
                 bwd += flops.roi_bwd_least(fhw, body.dim_out, n, taps)
             st["meta"].update(flops=fl, roi_fwd_least=fwd, roi_bwd_least=bwd)
@@ -119,14 +121,17 @@ class Driver:
         dev = self.device
         walk = generate.train_walk(self.traffic, self.pool, self.seed)
         n_trace = int(self.traffic["trace_steps"])
-        times, done, flops_total = [], [], 0.0
+        times, done, flops_total, marks = [], [], 0.0, []
+        accum = self.pool[0]["batch"]["valid"].shape[0]
         prof = tr = None
         traced, traced_s, launches = [], 0.0, None
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         _sync(dev)
+        # whole cycles of the walk: every seed's window does the same steps
+        cycle = sum(int(st["meta"]["weight"]) for st in self.pool)
         t0 = time.perf_counter()
-        while time.perf_counter() - t0 < seconds or (prof is not None):
+        while time.perf_counter() - t0 < seconds or prof is not None or len(times) % cycle:
             if trace and prof is None and not traced and time.perf_counter() - t0 >= 0.4 * seconds:
                 tp = time.perf_counter()
                 launches = (ra.roi_align.kernel_launches, ra.roi_align_backward.kernel_launches)
@@ -138,6 +143,7 @@ class Driver:
                 self.trainer.step(self.pool[i]["batch"])
             te = time.perf_counter()
             times.append(te - ts)
+            marks.append((te - t0, len(times) * accum))
             if prof is not None:
                 traced.append(i)
                 if len(traced) == n_trace:
@@ -152,7 +158,6 @@ class Driver:
                 flops_total += self.pool[i]["meta"]["flops"]
         t_end = time.perf_counter()
         window_s = t_end - t0
-        accum = self.pool[0]["batch"]["valid"].shape[0]
         out = {
             "attempted": len(times), "failed": 0,
             "e2e": {
@@ -170,7 +175,7 @@ class Driver:
                 "roi_bwd_launches": launches[1] if tr is not None else 0,
                 "expected_launches": accum * len(traced),
             },
-            "steps": len(times), "window_s": window_s,
+            "steps": len(times), "window_s": window_s, "marks": marks,
             "step_ms_median": 1e3 * statistics.median(times),
         }
         return out

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark.reference.model import BODIES, CIMModel, MaskFuse
+from benchmark.reference.bodies import conv_body
+from benchmark.reference.model import CIMModel, ClsIouHead, MaskFuse
 
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -85,11 +86,15 @@ def head_flops_per_roi(dim_in: int, hidden: int, classes: int, refine: int,
     """FLOPs a proposal of MaskFuse after its RoIAlign (the 3x3 conv 2C ->
     C on 7x7, both FCs) and of the cls/iou heads; with ``train`` their
     backward too, into the RoIAlign output."""
+    return _cached(f"head {dim_in} {hidden} {classes} {refine} {int(train)}",
+                   lambda: _head_flops_per_roi(dim_in, hidden, classes, refine, train))
+
+
+def _head_flops_per_roi(dim_in, hidden, classes, refine, train):
     n = 2
     with torch.device("meta"):
-        model = CIMModel("tiny", num_classes=classes, refine_times=refine, hidden=hidden)
-        model.Box_Head = MaskFuse(dim_in, 1.0 / 16, hidden)
-    head, cls = model.Box_Head, model.cls_iou_model
+        head = MaskFuse(dim_in, 1.0 / 16, hidden)
+        cls = ClsIouHead(hidden, classes, refine)
 
     def run():
         box_x = torch.zeros((n, 7, 7, dim_in), device="meta", requires_grad=train)
@@ -150,7 +155,7 @@ def image_flops(body: str, hw, n_valid: int, rois_valid: np.ndarray, model_dims:
                 train: bool) -> float:
     """Model FLOPs of one image at its true (h, w) with its n_valid
     proposals (the rois of that pass, in its coordinates)."""
-    cls = BODIES[body]
+    cls = conv_body(body).Body
     dim_in = cls.dim_out
     head = head_flops_per_roi(dim_in, model_dims["hidden"], model_dims["classes"],
                               model_dims["refine"], train)

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import os
 
+from benchmark.reference.bodies import conv_body
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -23,11 +25,22 @@ def load_cfg(spec: dict, extra=()):
     return cfg
 
 
-def frozen_view(cfg) -> dict:
-    """The values the reference reads, from the program's config."""
+def _key(cfg, dotted: str):
+    for part in dotted.split("."):
+        cfg = cfg[part]
+    return cfg
+
+
+def frozen_view(cfg, body: str) -> dict:
+    """The values the reference reads, from the program's config, where the
+    reference runs conv body ``body`` (benchmark/reference/bodies/<body>.py):
+    that name where the config's MODEL.CONV_BODY names the same body, else
+    the config's own; the freeze depth under the body file's key."""
     s, t = cfg.SOLVER, cfg.TEST
-    body = cfg.MODEL.CONV_BODY.split(".")[0].lower()
-    freeze = {"resnet50": cfg.ResNet.FREEZE_AT, "vgg16": cfg.VGG.FREEZE_AT}.get(body, 0)
+    mod = conv_body(body)
+    named = cfg.MODEL.CONV_BODY.split(".")[0].lower() == mod.CONV_BODY
+    freeze = _key(cfg, mod.FREEZE_KEY) if named and mod.FREEZE_KEY else 0
+    body = body if named else cfg.MODEL.CONV_BODY
     cap = cfg.TPU.MAX_ADAPTIVE_GRID
     cap = max(cap, 4) if cfg.TPU.PALLAS_ROI_ALIGN else cap
     return {
@@ -65,8 +78,10 @@ def frozen_view(cfg) -> dict:
 def check_frozen(cfg, spec: dict):
     """Raise where the program's config and the configuration file's
     frozen copy disagree on a value the reference reads."""
-    got = frozen_view(cfg)
-    bad = []
+    body = spec["model"]["body"]
+    got = frozen_view(cfg, body)
+    own = getattr(conv_body(body), "mismatches", None)
+    bad = list(own(cfg)) if own else []
     for part, values in got.items():
         for k, v in values.items():
             want = spec[part].get(k)

@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from benchmark.reference.bodies import conv_body
 from benchmark.reference.roi_align import roi_align
 
 FP8_MAX = 448.0  # largest finite float8 e4m3fn
@@ -91,7 +92,7 @@ class FrozenBatchNorm(nn.Module):
         return x * inv.to(x.dtype).view(1, -1, 1, 1) + off.to(x.dtype).view(1, -1, 1, 1)
 
 
-# ---------------------------------------------------------------- bodies
+# ------------------------------------------- the bodies' shared block
 
 class Bottleneck(nn.Module):
     """torchvision v1.5 bottleneck: 1x1 -> 3x3 (stride) -> 1x1, x4 width."""
@@ -114,98 +115,6 @@ class Bottleneck(nn.Module):
         out = self.bn3(self.conv3(out))
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(out + identity)
-
-
-def _stage(inplanes, planes, blocks, stride):
-    layers = [Bottleneck(inplanes, planes, stride, downsample=True)]
-    layers += [Bottleneck(planes * 4, planes) for _ in range(1, blocks)]
-    return nn.Sequential(*layers)
-
-
-class ResNet50C4(nn.Module):
-    """ResNet-50 cut after layer3: 1024 channels at stride 16."""
-
-    dim_out, stride = 1024, 16
-
-    def __init__(self):
-        super().__init__()
-        self.res1 = nn.Sequential(Conv2d(3, 64, 7, stride=2, padding=3, bias=False),
-                                  FrozenBatchNorm(64))
-        self.res2 = _stage(64, 64, 3, 1)
-        self.res3 = _stage(256, 128, 4, 2)
-        self.res4 = _stage(512, 256, 6, 2)
-
-    def forward(self, x):
-        x = F.max_pool2d(F.relu(self.res1(x)), 3, 2, 1)
-        return self.res4(self.res3(self.res2(x)))
-
-    @staticmethod
-    def frozen(freeze_at):
-        return [f"res{i}" for i in range(1, freeze_at + 1)]
-
-
-class DilatedVGG16(nn.Module):
-    """13 biased 3x3 convs, pools after groups 1-3, conv5 dilated 2: 512
-    channels at stride 8."""
-
-    dim_out, stride = 512, 8
-    GROUPS = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512), (512, 512, 512))
-
-    def __init__(self):
-        super().__init__()
-        cin = 3
-        for g, chans in enumerate(self.GROUPS, 1):
-            d = 2 if g == 5 else 1
-            layers = []
-            for cout in chans:
-                layers += [Conv2d(cin, cout, 3, padding=d, dilation=d), nn.ReLU()]
-                cin = cout
-            if g <= 3:
-                layers.append(nn.MaxPool2d(2, 2))
-            self.add_module(f"conv{g}", nn.Sequential(*layers))
-
-    def forward(self, x):
-        for g in range(1, 6):
-            x = getattr(self, f"conv{g}")(x)
-        return x
-
-    @staticmethod
-    def frozen(freeze_at):
-        return [f"conv{i}" for i in range(1, freeze_at + 1)]
-
-
-class TinyConvBody(nn.Module):
-    """Four stride-2 3x3 convs with bias and ReLU (the CPU tests' body)."""
-
-    dim_out, stride = 32, 16
-    CHANNELS = (8, 16, 32, 32)
-
-    def __init__(self):
-        super().__init__()
-        ins = (3,) + self.CHANNELS[:-1]
-        for i, (cin, cout) in enumerate(zip(ins, self.CHANNELS)):
-            self.add_module(f"conv{i}", Conv2d(cin, cout, 3, stride=2, padding=1))
-
-    def forward(self, x):
-        for i in range(len(self.CHANNELS)):
-            x = F.relu(getattr(self, f"conv{i}")(x))
-        return x
-
-    @staticmethod
-    def frozen(freeze_at):
-        return []
-
-
-BODIES = {"resnet50": ResNet50C4, "vgg16": DilatedVGG16, "tiny": TinyConvBody}
-
-
-def feature_hw(body: str, h: int, w: int):
-    """The body's feature extent of an (h, w) image: ceil(v / 16) through
-    ResNet-50's and the tiny body's stride-2 convs, floor(v / 8) through
-    VGG-16's k2 s2 pools."""
-    if body == "vgg16":
-        return h // 8, w // 8
-    return -(-h // 16), -(-w // 16)
 
 
 # ------------------------------------------------------------ head, model
@@ -251,14 +160,13 @@ class ClsIouHead(nn.Module):
 
 
 class CIMModel(nn.Module):
-    def __init__(self, body="resnet50", num_classes=20, refine_times=3, hidden=4096,
+    def __init__(self, body: str, num_classes=20, refine_times=3, hidden=4096,
                  cap=4, prec="f32"):
         super().__init__()
         if prec not in ("f32", "bf16", "fp8"):
             raise ValueError(f"precision {prec!r}: f32, bf16 or fp8")
-        self.body_name = body
         self.dtype = torch.float32 if prec == "f32" else torch.bfloat16
-        cls = BODIES[body]
+        cls = conv_body(body).Body
         self.Conv_Body = cls()
         self.Box_Head = MaskFuse(cls.dim_out, 1.0 / cls.stride, hidden, 7, cap, self.dtype)
         self.cls_iou_model = ClsIouHead(hidden, num_classes, refine_times)
@@ -279,7 +187,7 @@ class CIMModel(nn.Module):
 
     def freeze(self, freeze_at: int):
         """requires_grad False on the body's first ``freeze_at`` stages."""
-        frozen = [f"Conv_Body.{p}" for p in BODIES[self.body_name].frozen(freeze_at)]
+        frozen = [f"Conv_Body.{p}" for p in self.Conv_Body.frozen(freeze_at)]
         for name, p in self.named_parameters():
             p.requires_grad_(not any(name == f or name.startswith(f + ".") for f in frozen))
         return self

@@ -55,6 +55,8 @@ import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 
+from benchmark.host import HostLog  # noqa: E402
+
 FORBIDDEN = {"jax", "jaxlib", "flax", "cim_tpu"}
 
 
@@ -110,6 +112,21 @@ def judge(numbers: dict, limits: dict):
     return checks, ok
 
 
+SLICE_S = 5.0
+
+
+def slice_rates(marks, slice_s: float = SLICE_S) -> list:
+    """Items a second in consecutive slices of about ``slice_s`` seconds,
+    from (seconds, items done by then) marks, read after the window: the
+    first slice against the rest shows a transient, a drift a trend."""
+    out, t_prev, n_prev = [], 0.0, 0
+    for t, n in marks:
+        if t - t_prev >= slice_s:
+            out.append(round((n - n_prev) / (t - t_prev), 3))
+            t_prev, n_prev = t, n
+    return out
+
+
 def run_cell(bench, wl, spec, traffic, limits, seed: int, seconds: float, trace: bool,
              device="cuda", extra_cfg=(), proc_start: float = PROC_START):
     """Set-up, window and check of one run; returns the result dict."""
@@ -121,9 +138,19 @@ def run_cell(bench, wl, spec, traffic, limits, seed: int, seconds: float, trace:
     drv.setup()
     setup_s = time.time() - proc_start
     log(f"[run] {wl['name']} seed {seed}: set-up {setup_s:.2f} s")
-    win = drv.window(seconds, trace)
-    rec = win["records"]
     on_card = dev.type == "cuda"
+    hl = HostLog(dev.index or 0) if on_card else None
+    if hl is not None:
+        hl.start()
+    win = drv.window(seconds, trace)
+    if hl is not None:
+        hl.stop()
+        for line in hl.report():
+            log(f"[host] {line}")
+    marks = win["marks"]
+    log(f"[run] rate by {SLICE_S:.0f} s slices of the window: {slice_rates(marks)}; "
+        f"the last item returned at {marks[-1][0] if marks else 0.0:.3f} s")
+    rec = win["records"]
     rec["on_card"] = on_card
     device_info = {
         "platform": "gpu" if on_card else "cpu",

@@ -34,16 +34,29 @@ TINY_LIMITS = {
 }
 
 
-def tiny_cell(name: str):
-    """(manifest, workload, configuration, traffic, limits) of the cell,
-    cut to the tiny size, with the tiny size's limits."""
-    bench, wl, spec, traffic, limits = load_cell(name)
-    spec, traffic = copy.deepcopy(spec), copy.deepcopy(traffic)
-    spec["model"].update(body="tiny", hidden=256, freeze_at=0)
-    spec["test"].update(SCALE=64, AUG_SCALES=[48, 80])
+def tiny_traffic(traffic: dict) -> dict:
+    """A copy of a traffic mix cut to the tiny size."""
+    traffic = copy.deepcopy(traffic)
     if traffic["driver"] == "train_step":
         traffic.update(strata=copy.deepcopy(TRAIN_STRATA), trace_steps=2)
     else:
         traffic.update(image_shapes=[[48, 64], [64, 48]], windows=2, check_images=3,
                        strata=[{"n_valid": [20, 40], "counts": [3, 2]}])
-    return bench, wl, spec, traffic, copy.deepcopy(TINY_LIMITS[traffic["driver"]])
+    return traffic
+
+
+def tiny_spec(spec: dict) -> dict:
+    """A copy of a configuration file cut to the tiny size, on the tiny body."""
+    spec = copy.deepcopy(spec)
+    spec["model"].update(body="tiny", hidden=256, freeze_at=0)
+    spec["test"].update(SCALE=64, AUG_SCALES=[48, 80])
+    return spec
+
+
+def tiny_cell(name: str):
+    """(manifest, workload, configuration, traffic, limits) of the cell,
+    cut to the tiny size, with the tiny size's limits."""
+    bench, wl, spec, traffic, limits = load_cell(name)
+    traffic = tiny_traffic(traffic)
+    return (bench, wl, tiny_spec(spec), traffic,
+            copy.deepcopy(TINY_LIMITS[traffic["driver"]]))
